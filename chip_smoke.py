@@ -1,0 +1,440 @@
+"""Drive the PyTorch/CUDA port on one NVIDIA card and check it end to end.
+
+    python3 chip_smoke.py
+
+Builds the CUDA kernels of ``src/repro_torch`` (nvcc, into ``build/``),
+holds each against its plain PyTorch version on the card, then runs the
+main path -- ``plan -> bind -> apply`` of a coded sparse product
+C = A^T B -- at full size (s=16384, r=t=8192, m=n=2, N=8 workers, 8x8
+tiles at 10% block density: the geometry of the repo's coded-matmul
+benchmark, scaled up) and compares every C with the dense product.
+Each phase prints one JSON line; the line before the last lists the
+kernels with their launches, times and bounds, and the last line is
+``{"ok": true, "device": {...}}``.  Any failed check raises, so the exit
+code is nonzero and no result line is printed.  It exits nonzero at once
+where no CUDA device is present.
+"""
+
+from __future__ import annotations
+
+import contextlib
+import dataclasses
+import json
+import math
+import pathlib
+import statistics
+import subprocess
+import sys
+import time
+
+import numpy as np
+import torch
+
+ROOT = pathlib.Path(__file__).resolve().parent
+
+# H100 SXM peaks (NVIDIA data sheet): HBM3 bytes/s, and f32 FLOP/s on the
+# CUDA cores -- the kernels compute in IEEE f32, not on the tensor cores
+HBM_BYTES_PER_S = 3.35e12
+F32_FLOP_PER_S = 67e12
+EPS32 = float(np.finfo(np.float32).eps)
+
+# the full-size main path
+S, R, T, BS = 16384, 8192, 8192, 8
+M_BLK, N_BLK, WORKERS, DENSITY, SEED = 2, 2, 8, 0.10, 0
+# end-to-end tolerance, relative to max|A^T B|: the coded sums accumulate
+# over s in f32 (error ~ eps * sqrt(live terms) * |coded partial sums|,
+# and coded partial sums run ~ |w| * degree = up to 64x the blocks they
+# encode) and the decode D = pinv(M) amplifies that by at most cond(M);
+# printed beside each result.  1e-3 leaves room for cond(M) ~ 100.
+E2E_RTOL = 1e-3
+
+
+def emit(**fields) -> None:
+    print(json.dumps(fields), flush=True)
+
+
+def check(ok: bool, what: str) -> None:
+    if not ok:
+        raise SystemExit(f"chip_smoke: FAILED: {what}")
+
+
+def time_ms(fn, reps: int = 5, warmup: int = 1) -> float:
+    """Median of ``reps`` timings of fn() with CUDA events, after warm-up."""
+    for _ in range(warmup):
+        fn()
+    torch.cuda.synchronize()
+    times = []
+    for _ in range(reps):
+        start = torch.cuda.Event(enable_timing=True)
+        stop = torch.cuda.Event(enable_timing=True)
+        start.record()
+        fn()
+        stop.record()
+        stop.synchronize()
+        times.append(start.elapsed_time(stop))
+    return statistics.median(times)
+
+
+def sum_tol(K: int, scale: float) -> float:
+    """Two f32 sums of K terms taken in different orders (the kernel's slot
+    loop vs the plain version's einsum): allow 8 sqrt(K) eps of the
+    largest output."""
+    return 8.0 * math.sqrt(K) * EPS32 * max(scale, 1e-30)
+
+
+# ------------------------------- phase 1 ------------------------------------
+
+def phase_device() -> dict:
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    smi = subprocess.run(
+        ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
+        capture_output=True, text=True, timeout=60, check=True
+    ).stdout.strip().splitlines()[0]
+    print(smi, flush=True)
+    info = {"name": torch.cuda.get_device_name(0), "nvidia_smi": smi,
+            "count": torch.cuda.device_count(), "torch": torch.__version__,
+            "cuda": torch.version.cuda, "allow_tf32": False}
+    emit(phase="device", **info)
+    return info
+
+
+# ------------------------------- phase 2 ------------------------------------
+
+def phase_build() -> None:
+    from repro_torch.kernels import build
+
+    t0 = time.perf_counter()
+    path = build.build("spmm_block")
+    build.load_library("spmm_block")
+    secs = time.perf_counter() - t0
+    ptxas = sorted({ln.split(":", 1)[1].strip()
+                    for ln in build.BUILD_LOG.get("spmm_block", "").splitlines()
+                    if "Used" in ln and "registers" in ln})
+    emit(phase="build", library=str(path.relative_to(ROOT)), seconds=secs,
+         ptxas=ptxas)
+
+
+# ------------------------------- phase 3 ------------------------------------
+
+def _quantize(vals: np.ndarray, dtype: str) -> torch.Tensor:
+    t = torch.from_numpy(vals)
+    if dtype == "bfloat16":
+        return t.to(torch.bfloat16)
+    if dtype == "int8":
+        return torch.from_numpy(np.clip(np.rint(vals * 40), -127, 127).astype(np.int8))
+    return t
+
+
+def _hold(name: str, vals, src, wsl, dvec, B, bt: int, t_tile: int = 128) -> dict:
+    """Both kernels against their plain versions on the same CUDA tensors,
+    and the bitwise fused == dvec (x) two-step check."""
+    from repro_torch.kernels import ref, spmm_block
+
+    two = spmm_block.spmm_block_fused(vals, src, wsl, B, bt=bt, t_tile=t_tile)
+    fused = spmm_block.spmm_block_fused_decode(vals, src, wsl, dvec, B, bt=bt,
+                                               t_tile=t_tile)
+    two_ref = ref.spmm_block_fused_ref(vals, src, wsl, B, bt)
+    fused_ref = ref.spmm_block_fused_decode_ref(vals, src, wsl, dvec, B, bt)
+    torch.cuda.synchronize()
+    K = vals.shape[1] * vals.shape[2]
+    err_two = float((two - two_ref).abs().max())
+    err_fused = float((fused - fused_ref).abs().max())
+    tol_two = sum_tol(K, float(two_ref.abs().max()))
+    tol_fused = sum_tol(K, float(fused_ref.abs().max()))
+    bitwise = bool(torch.equal(fused, dvec[:, None, None] * two[None]))
+    out = {"case": name, "err_fused": err_two, "tol_fused": tol_two,
+           "err_fused_decode": err_fused, "tol_fused_decode": tol_fused,
+           "bitwise_fused_decode_eq_dvec_x_two_step": bitwise}
+    check(err_two <= tol_two, f"{name}: two-step kernel vs plain {err_two} > {tol_two}")
+    check(err_fused <= tol_fused, f"{name}: fused-decode kernel vs plain {err_fused} > {tol_fused}")
+    check(bitwise, f"{name}: fused decode != dvec * two-step, bitwise")
+    return out
+
+
+def phase_kernels() -> None:
+    """Kernel vs plain at the tests' shapes, then at one mid-sized pack."""
+    from repro_torch.coded import CodedMatmulConfig, plan
+    from repro_torch.core.coded_matmul import DeviceTilePack, _block_sparse_operands
+    from repro_torch.sparse import dense_to_block_ell
+
+    dev = torch.device("cuda", 0)
+    rng = np.random.default_rng(SEED)
+    cases = []
+    for bs in (8, 16):
+        for bt, t_tile in ((128, 128), (24, 24), (40, 8), (251, 128)):
+            for dtype in ("float32", "bfloat16", "int8"):
+                CB, L, s, n, mn = 4, 5, 64, 3, 4
+                vals = rng.standard_normal((CB, L, bs, bs)).astype(np.float32)
+                src = np.stack([rng.integers(0, s // bs, (CB, L)),
+                                rng.integers(0, n, (CB, L))], -1).astype(np.int32)
+                w = rng.standard_normal((CB, L)).astype(np.float32)
+                w[:, -1] = 0.0                     # a padded slot
+                B = rng.standard_normal((s, n * bt)).astype(np.float32)
+                dvec = rng.standard_normal(mn).astype(np.float32)
+                cases.append(_hold(
+                    f"bs={bs} bt={bt} t_tile={t_tile} {dtype}",
+                    _quantize(vals, dtype).to(dev), torch.from_numpy(src).to(dev),
+                    torch.from_numpy(w).to(dev), torch.from_numpy(dvec).to(dev),
+                    torch.from_numpy(B).to(dev), bt, t_tile))
+    emit(phase="kernel_vs_plain", shapes="tests", cases=cases)
+
+    # mid-sized: a real pack, s=2048, br=bt=512, 10% blocks, worker 0
+    s, r, t = 2048, 1024, 1024
+    mask = rng.random((s // BS, r // BS)) < DENSITY
+    A = (rng.standard_normal((s // BS, BS, r // BS, BS), dtype=np.float32)
+         * mask[:, None, :, None]).reshape(s, r)
+    B = torch.from_numpy(rng.standard_normal((s, t), dtype=np.float32)).to(dev)
+    ell = dense_to_block_ell(A, BS)
+    cases = []
+    for dtype in ("float32", "bfloat16", "int8"):
+        op = plan(CodedMatmulConfig(backend="block_sparse", compute_dtype=dtype),
+                  M_BLK, N_BLK, WORKERS, seed=SEED)
+        dpack = DeviceTilePack.from_pack(op.pack_for(ell, use_cache=False), dev)
+        wsl = _block_sparse_operands(op.base_plan, dpack)
+        dvec = torch.from_numpy(op.base_plan.decode[:, 0].copy()).to(dev)
+        cases.append(_hold(f"s={s} br=bt=512 worker 0 {dtype}", dpack.vals[0],
+                           dpack.src[0], wsl[0], dvec, B, t // N_BLK))
+    emit(phase="kernel_vs_plain", shapes="mid", cases=cases)
+
+
+# ------------------------------- phase 4 ------------------------------------
+
+@contextlib.contextmanager
+def two_step_decode():
+    """block_sparse with its decode epilogue switched off: the local product
+    kernel, then dvec * C~ in PyTorch -- the two-step form the JAX
+    package's spmd check toggles the same way."""
+    from repro_torch.core import coded_backends
+
+    entry = coded_backends.get_backend("block_sparse")
+    entry.fused_decode = False
+    try:
+        yield
+    finally:
+        entry.fused_decode = True
+
+
+def launch_bound(pack, wsl, k: int, bt: int, mn: int, decode: bool) -> dict:
+    """The least time the card could take for worker k's launch: each input
+    read once (the live slots' tiles, addresses and weights, each distinct B
+    tile), each output written once, against the f32 FLOPs of the live
+    slots, on the H100 SXM peaks."""
+    live = wsl[k] != 0
+    n_live = int(live.sum())
+    src = pack.src[k][live].long()
+    n_groups = int(src[:, 1].max()) + 1 if n_live else 1
+    distinct_b = int(torch.unique(src[:, 0] * n_groups + src[:, 1]).numel())
+    CB, _, bs, _ = pack.vals[k].shape
+    out_copies = mn if decode else 1
+    nbytes = (n_live * (bs * bs * pack.vals.element_size() + 3 * 4)
+              + distinct_b * bs * bt * 4 + out_copies * CB * bs * bt * 4
+              + (mn * 4 if decode else 0))
+    flops = n_live * 2 * bs * bs * bt + (mn * CB * bs * bt if decode else 0)
+    t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
+    t_ops = flops / F32_FLOP_PER_S * 1e3
+    return {"bound_ms": max(t_bytes, t_ops),
+            "bound_by": "bytes" if t_bytes >= t_ops else "operations",
+            "bytes": nbytes, "flops": flops, "live_slots": n_live}
+
+
+def phase_main() -> list[dict]:
+    from repro_torch.coded import CodedMatmulConfig, from_plan, plan
+    from repro_torch.core.coded_matmul import _block_sparse_operands
+    from repro_torch.core.decoder import DecodingError
+    from repro_torch.kernels import ref, spmm_block
+    from repro_torch.runtime import pack_cache
+    from repro_torch.sparse import dense_to_block_ell
+
+    dev = torch.device("cuda", 0)
+    rng = np.random.default_rng(SEED)
+    t0 = time.perf_counter()
+    mask = rng.random((S // BS, R // BS)) < DENSITY
+    A_np = (rng.standard_normal((S // BS, BS, R // BS, BS), dtype=np.float32)
+            * mask[:, None, :, None]).reshape(S, R)
+    B = torch.from_numpy(rng.standard_normal((S, T), dtype=np.float32)).to(dev)
+    A = torch.from_numpy(A_np).to(dev)
+    ell = dense_to_block_ell(A_np, BS)
+    data_s = time.perf_counter() - t0
+
+    cfg = CodedMatmulConfig(scheme="sparse_code", backend="block_sparse",
+                            block_size=BS)
+    op = plan(cfg, m=M_BLK, n=N_BLK, num_workers=WORKERS, seed=SEED).bind()
+    op_sh = from_plan(dataclasses.replace(cfg, out_sharded=True),
+                      op.base_plan).bind()
+    dead = None
+    for k in [3] + [j for j in range(WORKERS) if j != 3]:
+        surv = np.ones(WORKERS, dtype=bool)
+        surv[k] = False
+        try:
+            op_dead = op.with_survivors(surv)
+        except DecodingError:
+            continue
+        dead = k
+        break
+    check(dead is not None, "no single dead worker leaves a decodable plan")
+
+    pack_ms = statistics.median(
+        _host_ms(lambda: op.pack_for(ell, use_cache=False)) for _ in range(3))
+    ref_C = A.T @ B
+    torch.cuda.synchronize()
+    scale = float(ref_C.abs().max())
+
+    variants = [("all alive, replicated", op),
+                (f"worker {dead} dead, replicated", op_dead),
+                ("all alive, out_sharded", op_sh),
+                (f"worker {dead} dead, out_sharded",
+                 op_sh.with_survivors(op_dead.survivors))]
+    L = spmm_block.LAUNCHES
+    t0 = time.perf_counter()
+    # ---- the main path: counts from 0, one apply per variant, counts read
+    spmm_block.reset_launch_counts()
+    results = []
+    for name, v in variants:
+        before = dict(L)
+        C = v(A, B, a_sparse=ell)
+        torch.cuda.synchronize()
+        results.append((name, v, C, {k: L[k] - before[k] for k in L}))
+    with two_step_decode():
+        before = dict(L)
+        C_two = op(A, B, a_sparse=ell)
+        torch.cuda.synchronize()
+        two_launches = {k: L[k] - before[k] for k in L}
+    main_launches = dict(L)
+    # ---------------------------------------------------------------------
+    first_pass_s = time.perf_counter() - t0
+
+    rows = []
+    for name, v, C, launches in results:
+        err = float((C - ref_C).abs().max())
+        M_eff = v.plan_.coefficient_matrix()
+        if v.survivors is not None:
+            M_eff = M_eff[v.survivors]
+        rows.append({"variant": name, "shape": list(C.shape),
+                     "finite": bool(torch.isfinite(C).all()),
+                     "rel_err": err / scale, "rtol": E2E_RTOL,
+                     "cond_M": float(np.linalg.cond(M_eff[M_eff.any(axis=1)])),
+                     "launches": launches})
+        check(tuple(C.shape) == (R, T), f"{name}: C shape {tuple(C.shape)}")
+        check(rows[-1]["finite"], f"{name}: non-finite C")
+        check(err / scale <= E2E_RTOL, f"{name}: rel err {err / scale} > {E2E_RTOL}")
+        check(launches["spmm_block_fused_decode"] == WORKERS
+              and launches["spmm_block_fused"] == 0,
+              f"{name}: launches {launches}, want {WORKERS} fused-decode")
+    check(two_launches["spmm_block_fused"] == WORKERS
+          and two_launches["spmm_block_fused_decode"] == 0,
+          f"two-step apply launches {two_launches}")
+    two_equal = bool(torch.equal(C_two, results[0][2]))
+    check(two_equal, "two-step C != fused-decode C, bitwise")
+    emit(phase="main_path", S=S, R=R, T=T, m=M_BLK, n=N_BLK, workers=WORKERS,
+         block_size=BS, block_density=float(mask.mean()),
+         live_tile_fraction=ell.density(), max_degree=op.base_plan.max_degree,
+         dead_worker=dead, variants=rows,
+         two_step={"launches": two_launches, "bitwise_eq_fused": two_equal},
+         launches=main_launches, data_setup_s=data_s,
+         first_pass_s=first_pass_s)
+
+    # ---- times (after the counts were read) ----
+    apply_ms = {name: time_ms(lambda v=v: v(A, B, a_sparse=ell))
+                for name, v, _, _ in results}
+    dense_ms = time_ms(lambda: A.T @ B)
+    emit(phase="times", unit="ms", host_pack_ms=pack_ms, apply_ms=apply_ms,
+         library_dense_matmul_ms=dense_ms,
+         peak_device_bytes=torch.cuda.max_memory_allocated())
+    emit(phase="profile", variant=results[0][0],
+         **profile_apply(lambda: op(A, B, a_sparse=ell)))
+
+    # ---- each kernel at the main path's shape: the heaviest worker ----
+    wp = op.pack_for(ell)
+    dpack = pack_cache.device_pack(wp, dev)
+    wsl = _block_sparse_operands(op.base_plan, dpack)
+    k = int(np.argmax(wp.live_tiles))
+    bt = T // N_BLK
+    mn = M_BLK * N_BLK
+    dvec = torch.from_numpy(op.base_plan.decode[:, k].copy()).to(dev)
+    args = (dpack.vals[k], dpack.src[k], wsl[k])
+    K = dpack.vals.shape[2] * BS
+    kernels = []
+    for name, line, decode in (("spmm_block_fused_decode", 314, True),
+                               ("spmm_block_fused", 176, False)):
+        if decode:
+            run = lambda: spmm_block.spmm_block_fused_decode(*args, dvec, B, bt=bt)
+            plain = lambda: ref.spmm_block_fused_decode_ref(*args, dvec, B, bt)
+        else:
+            run = lambda: spmm_block.spmm_block_fused(*args, B, bt=bt)
+            plain = lambda: ref.spmm_block_fused_ref(*args, B, bt)
+        got, want = run(), plain()
+        err = float((got - want).abs().max())
+        tol = sum_tol(K, float(want.abs().max()))
+        del got, want
+        check(err <= tol, f"{name} at the main-path shape: {err} > {tol}")
+        bound = launch_bound(dpack, wsl, k, bt, mn, decode)
+        kernels.append({
+            "name": name, "route": "cuda",
+            "source": "src/repro_torch/kernels/csrc/spmm_block.cu",
+            "replaces": f"src/repro/kernels/spmm_block.py:{line}",
+            "launches": main_launches[name], "max_abs_err": err, "tol": tol,
+            "ms": time_ms(run), "plain_ms": time_ms(plain, reps=3),
+            "bound_ms": bound["bound_ms"], "bound_by": bound["bound_by"],
+            "library_ms": None,
+            "shape": {"worker": k, "CB": int(dpack.vals.shape[1]),
+                      "L": int(dpack.vals.shape[2]), "bs": BS, "bt": bt,
+                      "mn": mn if decode else None,
+                      "live_slots": bound["live_slots"],
+                      "bytes": bound["bytes"], "flops": bound["flops"]}})
+        torch.cuda.empty_cache()
+    return kernels
+
+
+def profile_apply(fn) -> dict:
+    """Device time by kernel over one warm call of fn (torch.profiler), and
+    the device's idle share of the call's wall time.  Where the trace holds
+    no device time, both are None: not measured."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        fn()
+        torch.cuda.synchronize()
+        wall_ms = (time.perf_counter() - t0) * 1e3
+    kernels = sorted(((e.key, e.self_device_time_total / 1e3, e.count)
+                      for e in prof.key_averages()
+                      if e.device_type == DeviceType.CUDA
+                      and e.self_device_time_total > 0), key=lambda r: -r[1])
+    busy = sum(ms for _, ms, _ in kernels)
+    return {"wall_ms": wall_ms, "device_busy_ms": busy or None,
+            "device_idle_share": 1.0 - busy / wall_ms if busy else None,
+            "by_kernel": [{"name": name[:96], "ms": ms, "count": count}
+                          for name, ms, count in kernels[:6]]}
+
+
+def _host_ms(fn) -> float:
+    t0 = time.perf_counter()
+    fn()
+    return (time.perf_counter() - t0) * 1e3
+
+
+def main() -> int:
+    if not torch.cuda.is_available():
+        print("chip_smoke: no CUDA device; this check runs on the card only",
+              file=sys.stderr)
+        return 2
+    sys.path.insert(0, str(ROOT / "src"))
+    import repro_torch  # noqa: F401  (fails here when run outside the repo)
+
+    info = phase_device()
+    phase_build()
+    phase_kernels()
+    kernels = phase_main()
+    emit(kernels=kernels)
+    print(json.dumps({"ok": True, "device": {
+        "platform": "gpu", "kind": info["name"], "count": info["count"]}}),
+        flush=True)
+    return 0
+
+
+if __name__ == "__main__":
+    sys.exit(main())

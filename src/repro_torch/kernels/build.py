@@ -1,0 +1,93 @@
+"""Build and load the port's CUDA kernels.
+
+Each source under ``csrc/`` is compiled by ``nvcc`` for Hopper (sm_90a)
+into a shared library with a plain C interface, on first use, into
+``build/`` at the root of the checkout, and loaded with ``ctypes``.  The
+library's name carries a hash of its source, so an edited source builds
+anew and a built one is reused.  Nothing is built when a module is
+imported: the CPU lane never calls into here.
+"""
+
+from __future__ import annotations
+
+import ctypes
+import hashlib
+import os
+import pathlib
+import subprocess
+import tempfile
+
+CSRC = pathlib.Path(__file__).resolve().parent / "csrc"
+BUILD_DIR = pathlib.Path(__file__).resolve().parents[3] / "build"
+NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
+              "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
+
+_P, _I = ctypes.c_void_p, ctypes.c_int
+#: the C signature of every entry point, by library
+SIGNATURES = {
+    "spmm_block": {
+        # vals, vals_dtype, bs, src, wslot, B, out, CB, L, t, bt, t_tile, stream
+        "spmm_block_fused": [_P, _I, _I, _P, _P, _P, _P, _I, _I, _I, _I, _I, _P],
+        # vals, vals_dtype, bs, src, wslot, dvec, B, out, CB, L, t, bt, mn,
+        # t_tile, stream
+        "spmm_block_fused_decode": [_P, _I, _I, _P, _P, _P, _P, _P, _I, _I, _I,
+                                    _I, _I, _I, _P],
+    },
+}
+
+_LOADED: dict[str, ctypes.CDLL] = {}
+#: ptxas's report (registers, shared memory, spills) of each build made by
+#: this process, by library
+BUILD_LOG: dict[str, str] = {}
+
+
+def nvcc() -> str:
+    """The CUDA toolkit's compiler, found as PyTorch finds the toolkit
+    (``CUDA_HOME``, then ``nvcc`` on PATH, then the default install)."""
+    from torch.utils.cpp_extension import CUDA_HOME
+
+    if CUDA_HOME is None:
+        raise RuntimeError("no CUDA toolkit found: set CUDA_HOME")
+    return str(pathlib.Path(CUDA_HOME) / "bin" / "nvcc")
+
+
+def library_path(name: str) -> pathlib.Path:
+    digest = hashlib.sha256((CSRC / f"{name}.cu").read_bytes()).hexdigest()[:12]
+    return BUILD_DIR / f"lib{name}-{digest}.so"
+
+
+def build(name: str) -> pathlib.Path:
+    """Compile ``csrc/<name>.cu`` unless its library is built; its path."""
+    out = library_path(name)
+    if out.exists():
+        return out
+    BUILD_DIR.mkdir(parents=True, exist_ok=True)
+    fd, tmp = tempfile.mkstemp(suffix=".so", dir=BUILD_DIR)
+    os.close(fd)
+    try:
+        proc = subprocess.run(
+            [nvcc(), *NVCC_FLAGS, "-o", tmp, str(CSRC / f"{name}.cu")],
+            capture_output=True, text=True, timeout=900)
+        if proc.returncode != 0:
+            raise RuntimeError(
+                f"nvcc failed on {name}.cu (exit {proc.returncode}):\n"
+                f"{proc.stdout}{proc.stderr}")
+        BUILD_LOG[name] = proc.stdout + proc.stderr
+        os.replace(tmp, out)   # atomic: a concurrent loader sees all or nothing
+    finally:
+        if os.path.exists(tmp):
+            os.unlink(tmp)
+    return out
+
+
+def load_library(name: str) -> ctypes.CDLL:
+    """The loaded library ``name``, built first if need be, with every
+    entry point's argument and result types declared."""
+    lib = _LOADED.get(name)
+    if lib is None:
+        lib = ctypes.CDLL(str(build(name)))
+        for fn, argtypes in SIGNATURES[name].items():
+            getattr(lib, fn).argtypes = argtypes
+            getattr(lib, fn).restype = ctypes.c_int
+        _LOADED[name] = lib
+    return lib

@@ -1,0 +1,148 @@
+"""The port's boundary: no JAX, no ``repro``, no hidden CPU carry-on.
+
+* every ``repro_torch`` module and ``chip_smoke`` import in a process where
+  ``jax``, ``ml_dtypes`` and ``repro`` cannot be imported at all;
+* no port file names them;
+* ``bind()`` with no CUDA device raises instead of running on the CPU;
+* a kernel wrapper given CPU tensors takes the plain version and never
+  reaches the CUDA lane, while the CUDA wrapper refuses CPU tensors;
+* ``chip_smoke.py`` fails, printing no result, where it cannot run.
+"""
+
+from __future__ import annotations
+
+import pathlib
+import re
+import subprocess
+import sys
+
+import numpy as np
+import pytest
+
+torch = pytest.importorskip("torch")
+
+ROOT = pathlib.Path(__file__).resolve().parents[1]
+PORT = ROOT / "src" / "repro_torch"
+
+_IMPORT_ALL = r"""
+import importlib, pkgutil, sys
+for name in ("jax", "jaxlib", "ml_dtypes", "repro"):
+    sys.modules[name] = None          # any import of them now raises
+sys.path[:0] = [sys.argv[1], sys.argv[2]]
+import repro_torch
+names = [m.name for m in pkgutil.walk_packages(repro_torch.__path__,
+                                               "repro_torch.")]
+for name in names:
+    importlib.import_module(name)
+import chip_smoke
+from repro_torch import CodedMatmulConfig, CodedOp, plan
+leaked = sorted(m for m in sys.modules if sys.modules[m] is not None and (
+    m.split(".")[0] in ("jax", "jaxlib", "ml_dtypes", "repro")))
+assert not leaked, leaked
+print(len(names))
+"""
+
+
+def test_every_port_module_imports_without_jax_or_repro():
+    proc = subprocess.run(
+        [sys.executable, "-c", _IMPORT_ALL, str(ROOT / "src"), str(ROOT)],
+        capture_output=True, text=True, timeout=120, cwd=ROOT)
+    assert proc.returncode == 0, proc.stderr[-2000:]
+    # the walk found the whole package (core, coded, sparse, kernels, runtime)
+    assert int(proc.stdout.split()[-1]) >= 20
+
+
+_FORBIDDEN = re.compile(
+    r"\bimport\s+jax\b|\bfrom\s+jax\b|\bml_dtypes\b|(?<![\w/])repro\.")
+
+
+@pytest.mark.parametrize("path", sorted(
+    str(p.relative_to(ROOT)) for p in
+    [*PORT.rglob("*.py"), *PORT.rglob("*.cu"), ROOT / "chip_smoke.py"]))
+def test_port_sources_name_no_jax_and_no_repro(path):
+    text = (ROOT / path).read_text()
+    hits = [m.group(0) for m in _FORBIDDEN.finditer(text)]
+    assert not hits, f"{path} names {hits}"
+
+
+def test_bind_without_cuda_raises_instead_of_using_the_cpu():
+    from repro_torch.coded import CodedMatmulConfig, plan
+
+    if torch.cuda.is_available():
+        pytest.skip("a CUDA device is present: bind() is meant to succeed")
+    op = plan(CodedMatmulConfig(backend="block_sparse"), 2, 2, 8)
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        op.bind()
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        op.bind("cuda")
+    assert op.bind("cpu").device == torch.device("cpu")
+    with pytest.raises(ValueError, match="unbound"):
+        op.apply(np.zeros((16, 16), np.float32), np.zeros((16, 24), np.float32))
+
+
+def _operands(seed=0, CB=2, L=3, bs=8, s=32, n=2, bt=24, mn=4):
+    rng = np.random.default_rng(seed)
+    vals = torch.from_numpy(rng.standard_normal((CB, L, bs, bs)).astype(np.float32))
+    src = torch.from_numpy(np.stack([rng.integers(0, s // bs, (CB, L)),
+                                     rng.integers(0, n, (CB, L))], -1).astype(np.int32))
+    w = torch.from_numpy(rng.standard_normal((CB, L)).astype(np.float32))
+    dvec = torch.from_numpy(rng.standard_normal(mn).astype(np.float32))
+    B = torch.from_numpy(rng.standard_normal((s, n * bt)).astype(np.float32))
+    return vals, src, w, dvec, B
+
+
+def test_cpu_tensors_never_reach_the_cuda_lane(monkeypatch):
+    from repro_torch.kernels import build, ops, ref, spmm_block
+
+    def refuse(*args, **kwargs):
+        raise AssertionError("the CPU lane reached the CUDA kernel")
+
+    monkeypatch.setattr(build, "load_library", refuse)
+    monkeypatch.setattr(spmm_block, "spmm_block_fused", refuse)
+    monkeypatch.setattr(spmm_block, "spmm_block_fused_decode", refuse)
+    before = dict(spmm_block.LAUNCHES)
+    vals, src, w, dvec, B = _operands()
+    two = ops.spmm_block_fused(vals, src, w, B, bt=24)
+    fused = ops.spmm_block_fused_decode(vals, src, w, dvec, B, bt=24)
+    assert torch.equal(two, ref.spmm_block_fused_ref(vals, src, w, B, 24))
+    assert torch.equal(fused, dvec[:, None, None] * two[None])
+    assert spmm_block.LAUNCHES == before
+
+
+def test_cuda_wrappers_refuse_cpu_tensors_and_count_nothing():
+    from repro_torch.kernels import spmm_block
+
+    before = dict(spmm_block.LAUNCHES)
+    vals, src, w, dvec, B = _operands()
+    with pytest.raises(ValueError, match="CUDA tensor"):
+        spmm_block.spmm_block_fused(vals, src, w, B, bt=24)
+    with pytest.raises(ValueError, match="CUDA tensor"):
+        spmm_block.spmm_block_fused_decode(vals, src, w, dvec, B, bt=24)
+    assert spmm_block.LAUNCHES == before
+
+
+def test_mixed_devices_and_unknown_lanes_are_refused():
+    from repro_torch.kernels import ops
+
+    vals, src, w, dvec, B = _operands()
+    with pytest.raises(ValueError, match="no kernel lane"):
+        ops.spmm_block_fused(vals.to("meta"), src.to("meta"), w.to("meta"),
+                             B.to("meta"), bt=24)
+    with pytest.raises(ValueError, match="several devices"):
+        ops.spmm_block_fused(vals.to("meta"), src, w, B, bt=24)
+
+
+@pytest.mark.parametrize("alone", [False, True])
+def test_chip_smoke_fails_without_printing_a_result(tmp_path, alone):
+    """Here (no card) and in a directory holding chip_smoke.py alone, the
+    script exits nonzero and prints no result line."""
+    script = ROOT / "chip_smoke.py"
+    if alone:
+        (tmp_path / "chip_smoke.py").write_text(script.read_text())
+        script, cwd = tmp_path / "chip_smoke.py", tmp_path
+    else:
+        cwd = ROOT
+    proc = subprocess.run([sys.executable, str(script)], capture_output=True,
+                          text=True, timeout=120, cwd=cwd)
+    assert proc.returncode != 0
+    assert '"ok"' not in proc.stdout
