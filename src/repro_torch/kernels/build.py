@@ -1,11 +1,12 @@
-"""Build and load the port's CUDA kernels.
+"""Build, load and launch-check the port's CUDA kernels.
 
 Each source under ``csrc/`` is compiled by ``nvcc`` for Hopper (sm_90a)
 into a shared library with a plain C interface, on first use, into
 ``build/`` at the root of the checkout, and loaded with ``ctypes``.  The
 library's name carries a hash of its source, so an edited source builds
 anew and a built one is reused.  Nothing is built when a module is
-imported: the CPU lane never calls into here.
+imported: the CPU lane never calls into here.  The checks every wrapper
+makes before and after a launch live here too.
 """
 
 from __future__ import annotations
@@ -16,6 +17,8 @@ import os
 import pathlib
 import subprocess
 import tempfile
+
+import torch
 
 CSRC = pathlib.Path(__file__).resolve().parent / "csrc"
 BUILD_DIR = pathlib.Path(__file__).resolve().parents[3] / "build"
@@ -32,6 +35,14 @@ SIGNATURES = {
         # t_tile, stream
         "spmm_block_fused_decode": [_P, _I, _I, _P, _P, _P, _P, _P, _I, _I, _I,
                                     _I, _I, _I, _P],
+        # vals, vals_dtype, bs, idx, B, out, CB, L, t, t_tile, stream
+        "spmm_block": [_P, _I, _I, _P, _P, _P, _I, _I, _I, _I, _P],
+    },
+    "coded_accum": {
+        # A, a_dtype, B, b_dtype, cols, weights, out, s, r, t, br, bt, n, L,
+        # stream
+        "coded_accum": [_P, _I, _P, _I, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I,
+                        _P],
     },
 }
 
@@ -91,3 +102,22 @@ def load_library(name: str) -> ctypes.CDLL:
             getattr(lib, fn).restype = ctypes.c_int
         _LOADED[name] = lib
     return lib
+
+
+def check_cuda_operands(named: dict, device_of: torch.Tensor) -> None:
+    """Every operand a contiguous CUDA tensor on ``device_of``'s device."""
+    for name, x in named.items():
+        if not isinstance(x, torch.Tensor) or x.device.type != "cuda":
+            raise ValueError(f"{name} must be a CUDA tensor, got "
+                             f"{getattr(x, 'device', type(x))}")
+        if x.device != device_of.device:
+            raise ValueError(f"{name} lies on {x.device}, not {device_of.device}")
+        if not x.is_contiguous():
+            raise ValueError(f"{name} must be contiguous")
+
+
+def raise_on_error(err: int, name: str) -> None:
+    """A launch's ``cudaError_t``: a refused launch never runs, and a later
+    synchronise would not report it."""
+    if err != 0:
+        raise RuntimeError(f"{name} launch failed: cudaError_t {err}")

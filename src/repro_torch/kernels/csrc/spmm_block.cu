@@ -3,9 +3,10 @@
 // Replaces the TPU kernels of src/repro/kernels/spmm_block.py:
 //   * _spmm_block_fused_pallas        (body _fused_kernel)        -> DECODE=false
 //   * _spmm_block_fused_decode_pallas (body _fused_decode_kernel) -> DECODE=true
-// and, with them, the Pallas-Triton lane of src/repro/kernels/spmm_block_triton.py
-// (spmm_block_fused_triton, spmm_block_fused_decode_triton), which computes the
-// same two functions.
+//   * spmm_block                      (body _kernel)              -> PLAIN=true
+// and, with the first two, the Pallas-Triton lane of
+// src/repro/kernels/spmm_block_triton.py (spmm_block_fused_triton,
+// spmm_block_fused_decode_triton), which computes the same two functions.
 //
 // What it computes, for one worker's packed tiles of A:
 //   acc[cb] = sum_l wslot[cb,l] * vals[cb,l]^T @ B[src0*bs:+bs, src1*bt:+bt]
@@ -13,6 +14,10 @@
 //   DECODE=true:  out (mn, CB*bs, bt)  : out[c] = dvec[c] * acc
 // Both forms run the SAME slot loop in the same order, so the decode form is
 // dvec[c] * (two-step form), bit for bit.
+//   PLAIN=true:   the plain block-ELL C = A^T B, the same loop with w = 1 and
+//                 one column group of width t: src is idx (CB, L), read at
+//                 stride 1, no weight is read or applied, and pad slots (zero
+//                 tiles at idx 0) add exact zeros; out (CB*bs, t).
 //
 // Design (simple and right first):
 //   * one thread block owns one (cb, t-tile) of the output; blockDim.x is the
@@ -55,11 +60,12 @@ __device__ __forceinline__ float to_f32(float v) { return v; }
 __device__ __forceinline__ float to_f32(__nv_bfloat16 v) { return __bfloat162float(v); }
 __device__ __forceinline__ float to_f32(int8_t v) { return static_cast<float>(v); }
 
-template <int BS, typename TV, bool DECODE>
+template <int BS, typename TV, bool DECODE, bool PLAIN = false>
 __global__ void spmm_block_fused_kernel(
     const TV* __restrict__ vals,      // (CB, L, BS, BS)
-    const int32_t* __restrict__ src,  // (CB, L, 2) [row-block of B, column group]
-    const float* __restrict__ wslot,  // (CB, L)
+    const int32_t* __restrict__ src,  // (CB, L, 2) [row-block of B, column group];
+                                      // PLAIN: (CB, L) row-block of B
+    const float* __restrict__ wslot,  // (CB, L); unused when PLAIN
     const float* __restrict__ dvec,   // (mn,) when DECODE
     const float* __restrict__ B,      // (s, t) row-major
     float* __restrict__ out,          // (CB*BS, bt) or (mn, CB*BS, bt)
@@ -75,10 +81,16 @@ __global__ void spmm_block_fused_kernel(
 
   for (int l = 0; l < L; ++l) {
     const int64_t slot = static_cast<int64_t>(cb) * L + l;
-    const float w = wslot[slot];
-    if (w == 0.0f) continue;  // the same for every thread of the block
-    const int64_t rb = src[2 * slot];
-    const int64_t grp = src[2 * slot + 1];
+    float w = 1.0f;
+    int64_t rb, grp = 0;
+    if constexpr (PLAIN) {
+      rb = src[slot];
+    } else {
+      w = wslot[slot];
+      if (w == 0.0f) continue;  // the same for every thread of the block
+      rb = src[2 * slot];
+      grp = src[2 * slot + 1];
+    }
     __syncthreads();  // the previous slot's tile has been consumed
     for (int e = threadIdx.x; e < BS * BS; e += blockDim.x)
       tile[e] = to_f32(vals[slot * (BS * BS) + e]);
@@ -93,7 +105,11 @@ __global__ void spmm_block_fused_kernel(
         float dot = 0.0f;
 #pragma unroll
         for (int i = 0; i < BS; ++i) dot = __fmaf_rn(tile[i * BS + o], b[i], dot);
-        acc[o] = __fadd_rn(acc[o], __fmul_rn(w, dot));
+        if constexpr (PLAIN) {
+          acc[o] = __fadd_rn(acc[o], dot);
+        } else {
+          acc[o] = __fadd_rn(acc[o], __fmul_rn(w, dot));
+        }
       }
     }
   }
@@ -116,24 +132,24 @@ __global__ void spmm_block_fused_kernel(
   }
 }
 
-template <int BS, typename TV, bool DECODE>
+template <int BS, typename TV, bool DECODE, bool PLAIN>
 int launch_typed(const void* vals, const int32_t* src, const float* wslot,
                  const float* dvec, const float* B, float* out, int CB, int L,
                  int t, int bt, int mn, int t_tile, cudaStream_t stream) {
   const dim3 grid(CB, (bt + t_tile - 1) / t_tile);
-  spmm_block_fused_kernel<BS, TV, DECODE><<<grid, t_tile, 0, stream>>>(
+  spmm_block_fused_kernel<BS, TV, DECODE, PLAIN><<<grid, t_tile, 0, stream>>>(
       static_cast<const TV*>(vals), src, wslot, dvec, B, out, CB, L, t, bt, mn);
   return static_cast<int>(cudaGetLastError());
 }
 
 // vals_dtype: 0 = float32, 1 = bfloat16, 2 = int8
-template <bool DECODE>
+template <bool DECODE, bool PLAIN = false>
 int launch(const void* vals, int vals_dtype, int bs, const int32_t* src,
            const float* wslot, const float* dvec, const float* B, float* out,
            int CB, int L, int t, int bt, int mn, int t_tile, cudaStream_t stream) {
 #define REPRO_LAUNCH(BS_, TV_)                                                  \
-  return launch_typed<BS_, TV_, DECODE>(vals, src, wslot, dvec, B, out, CB, L, \
-                                        t, bt, mn, t_tile, stream)
+  return launch_typed<BS_, TV_, DECODE, PLAIN>(vals, src, wslot, dvec, B, out,  \
+                                               CB, L, t, bt, mn, t_tile, stream)
   if (bs == 8) {
     if (vals_dtype == 0) REPRO_LAUNCH(8, float);
     if (vals_dtype == 1) REPRO_LAUNCH(8, __nv_bfloat16);
@@ -164,6 +180,14 @@ int spmm_block_fused_decode(const void* vals, int vals_dtype, int bs,
                             int L, int t, int bt, int mn, int t_tile, void* stream) {
   return launch<true>(vals, vals_dtype, bs, src, wslot, dvec, B, out, CB, L, t, bt,
                       mn, t_tile, static_cast<cudaStream_t>(stream));
+}
+
+int spmm_block(const void* vals, int vals_dtype, int bs, const int32_t* idx,
+               const float* B, float* out, int CB, int L, int t, int t_tile,
+               void* stream) {
+  return launch<false, true>(vals, vals_dtype, bs, idx, nullptr, nullptr, B, out,
+                             CB, L, t, /*bt=*/t, 0, t_tile,
+                             static_cast<cudaStream_t>(stream));
 }
 
 }  // extern "C"

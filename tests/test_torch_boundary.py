@@ -91,34 +91,55 @@ def _operands(seed=0, CB=2, L=3, bs=8, s=32, n=2, bt=24, mn=4):
     return vals, src, w, dvec, B
 
 
+def _accum_operands(seed=0, s=128, r=16, t=24, L=3):
+    rng = np.random.default_rng(seed)
+    A = torch.from_numpy(rng.standard_normal((s, r)).astype(np.float32))
+    B = torch.from_numpy(rng.standard_normal((s, t)).astype(np.float32))
+    cols = torch.from_numpy(rng.integers(0, 4, L).astype(np.int32))
+    weights = torch.from_numpy(rng.standard_normal(L).astype(np.float32))
+    return A, B, cols, weights
+
+
 def test_cpu_tensors_never_reach_the_cuda_lane(monkeypatch):
-    from repro_torch.kernels import build, ops, ref, spmm_block
+    from repro_torch.kernels import build, coded_accum, ops, ref, spmm_block
 
     def refuse(*args, **kwargs):
         raise AssertionError("the CPU lane reached the CUDA kernel")
 
     monkeypatch.setattr(build, "load_library", refuse)
-    monkeypatch.setattr(spmm_block, "spmm_block_fused", refuse)
-    monkeypatch.setattr(spmm_block, "spmm_block_fused_decode", refuse)
-    before = dict(spmm_block.LAUNCHES)
+    for name in ("spmm_block_fused", "spmm_block_fused_decode", "spmm_block"):
+        monkeypatch.setattr(spmm_block, name, refuse)
+    monkeypatch.setattr(coded_accum, "coded_accum", refuse)
+    before = dict(spmm_block.LAUNCHES), dict(coded_accum.LAUNCHES)
     vals, src, w, dvec, B = _operands()
     two = ops.spmm_block_fused(vals, src, w, B, bt=24)
     fused = ops.spmm_block_fused_decode(vals, src, w, dvec, B, bt=24)
     assert torch.equal(two, ref.spmm_block_fused_ref(vals, src, w, B, 24))
     assert torch.equal(fused, dvec[:, None, None] * two[None])
-    assert spmm_block.LAUNCHES == before
+    idx = src[..., 0].contiguous()
+    B16 = B[:, :16].contiguous()
+    assert torch.equal(ops.spmm_block(vals, idx, B16, t_tile=16),
+                       ref.spmm_block_ref(vals, idx, B16))
+    A, B2, cols, weights = _accum_operands()
+    assert torch.equal(ops.coded_accum(A, B2, cols, weights, m=2, n=2),
+                       ref.coded_accum_ref(A, B2, cols, weights, 2, 2))
+    assert (dict(spmm_block.LAUNCHES), dict(coded_accum.LAUNCHES)) == before
 
 
 def test_cuda_wrappers_refuse_cpu_tensors_and_count_nothing():
-    from repro_torch.kernels import spmm_block
+    from repro_torch.kernels import coded_accum, spmm_block
 
-    before = dict(spmm_block.LAUNCHES)
+    before = dict(spmm_block.LAUNCHES), dict(coded_accum.LAUNCHES)
     vals, src, w, dvec, B = _operands()
     with pytest.raises(ValueError, match="CUDA tensor"):
         spmm_block.spmm_block_fused(vals, src, w, B, bt=24)
     with pytest.raises(ValueError, match="CUDA tensor"):
         spmm_block.spmm_block_fused_decode(vals, src, w, dvec, B, bt=24)
-    assert spmm_block.LAUNCHES == before
+    with pytest.raises(ValueError, match="CUDA tensor"):
+        spmm_block.spmm_block(vals, src[..., 0].contiguous(), B)
+    with pytest.raises(ValueError, match="CUDA tensor"):
+        coded_accum.coded_accum(*_accum_operands(), m=2, n=2)
+    assert (dict(spmm_block.LAUNCHES), dict(coded_accum.LAUNCHES)) == before
 
 
 def test_mixed_devices_and_unknown_lanes_are_refused():
