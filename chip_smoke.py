@@ -11,7 +11,11 @@ benchmark, scaled up) and compares every C with the dense product.
 Then it drives the kernel entry points ``ops.spmm_block`` (the uncoded
 A^T B over the whole block-ELL of A) and ``ops.coded_accum`` (every
 worker's dense coded accumulation, decoded) on the same operands and
-compares both with the dense product too.
+compares both with the dense product too.  The ``coded_accum`` kernel
+(3xTF32 on the tensor cores) is also held against its plain version at
+shapes that fill whole 128 x 128 tiles and leave ragged edges, on both of
+its copy paths, and its eight launches are timed as a whole beside the
+port's cuBLAS dense scan.
 Each phase prints one JSON line; the line before the last lists the
 kernels with their launches, times and bounds, and the last line is
 ``{"ok": true, "device": {...}}``.  Any failed check raises, so the exit
@@ -38,10 +42,12 @@ import torch
 
 ROOT = pathlib.Path(__file__).resolve().parent
 
-# H100 SXM peaks (NVIDIA data sheet): HBM3 bytes/s, and f32 FLOP/s on the
-# CUDA cores -- the kernels compute in IEEE f32, not on the tensor cores
+# H100 SXM peaks (NVIDIA data sheet, dense): HBM3 bytes/s, f32 FLOP/s on
+# the CUDA cores (the spmm_block kernels compute in IEEE f32 there), and
+# TF32 FLOP/s on the tensor cores (coded_accum, three passes for f32)
 HBM_BYTES_PER_S = 3.35e12
 F32_FLOP_PER_S = 67e12
+TF32_FLOP_PER_S = 495e12
 EPS32 = float(np.finfo(np.float32).eps)
 
 # the full-size main path
@@ -246,10 +252,12 @@ def phase_entry_kernels() -> None:
             w[-1] = 0.0                                  # a padded slot
             A, B, cols, w = (A.to(dev, dtype), B.to(dev, dtype), cols.to(dev),
                              torch.from_numpy(w).to(dev))
-            cases.append(_held(
+            cases.append({**_held(
                 f"coded_accum m={m} n={n} s={s} r={r} t={t} L={L} {dtype}",
                 coded_accum.coded_accum(A, B, cols, w, m=m, n=n),
-                ref.coded_accum_ref(A, B, cols, w, m, n), s * L))
+                ref.coded_accum_ref(A, B, cols, w, m, n), s * L),
+                "copy_path": coded_accum.copy_path(dtype, dtype, r, t, r // m, t // n,
+                                                   A.data_ptr(), B.data_ptr())})
         for bs, RB, CB, t, density in ((8, 4, 4, 128, 0.3), (8, 8, 2, 256, 0.1),
                                        (16, 4, 4, 128, 0.5), (8, 2, 8, 128, 0.9)):
             mask = rng.random((RB, CB)) < density
@@ -266,6 +274,45 @@ def phase_entry_kernels() -> None:
                 ref.spmm_block_ref(vals, idx, B), vals.shape[1] * bs))
     emit(phase="kernel_vs_plain", shapes="tests", kernels=["coded_accum", "spmm_block"],
          cases=cases)
+
+
+#: (m, n, s, br, bt, L, live) of the tile cases: whole 128 x 128 tiles with
+#: ragged edges and an s that is no multiple of the kernel's 32-row chunk
+#: (16-byte copies), the same with br, bt that no 16-byte copy divides (one
+#: element a copy), an aligned case, and a task table of pads only
+ACCUM_TILE_SHAPES = ((2, 2, 1060, 200, 136, 4, 3), (2, 2, 1060, 201, 133, 4, 3),
+                     (2, 2, 2048, 384, 384, 4, 3), (2, 2, 256, 200, 136, 2, 0))
+
+
+def phase_accum_tiles() -> None:
+    """coded_accum against its plain version where its MMA tiles fill and
+    its edges are ragged, in f32, bf16 and mixed operands, on both copy
+    paths, with a padded slot in every table."""
+    from repro_torch.kernels import coded_accum, ref
+
+    dev = torch.device("cuda", 0)
+    rng = np.random.default_rng(SEED + 1)
+    f32, bf16 = torch.float32, torch.bfloat16
+    cases, paths = [], {}
+    for da, db in ((f32, f32), (bf16, bf16), (f32, bf16), (bf16, f32)):
+        for m, n, s, br, bt, L, live in ACCUM_TILE_SHAPES:
+            A = torch.from_numpy(rng.standard_normal((s, m * br), dtype=np.float32))
+            B = torch.from_numpy(rng.standard_normal((s, n * bt), dtype=np.float32))
+            cols = torch.from_numpy(rng.integers(0, m * n, L).astype(np.int32))
+            w = rng.standard_normal(L).astype(np.float32)
+            w[live:] = 0.0                               # padded slots
+            A, B, cols, w = (A.to(dev, da), B.to(dev, db), cols.to(dev),
+                             torch.from_numpy(w).to(dev))
+            path = coded_accum.copy_path(da, db, m * br, n * bt, br, bt,
+                                         A.data_ptr(), B.data_ptr())
+            paths.setdefault((da, db), set()).add(path)
+            cases.append({**_held(
+                f"coded_accum m={m} n={n} s={s} br={br} bt={bt} L={L} live={live} "
+                f"{da} x {db}", coded_accum.coded_accum(A, B, cols, w, m=m, n=n),
+                ref.coded_accum_ref(A, B, cols, w, m, n), s * L), "copy_path": path})
+    for pair, seen in paths.items():
+        check(seen == {"wide", "narrow"}, f"coded_accum {pair}: copy paths {seen}")
+    emit(phase="kernel_vs_plain", shapes="tiles", kernels=["coded_accum"], cases=cases)
 
 
 # ------------------------------- phase 4 ------------------------------------
@@ -285,11 +332,13 @@ def two_step_decode():
         entry.fused_decode = True
 
 
-def _bound(nbytes: int, flops: int) -> dict:
-    """The larger of bytes over the HBM rate and f32 FLOPs over the CUDA
-    cores' peak, in ms, on the H100 SXM data sheet."""
+def _bound(nbytes: int, flops: int, rate: float = F32_FLOP_PER_S,
+           passes: int = 1) -> dict:
+    """The larger of bytes over the HBM rate and ``passes`` times the FLOPs
+    over ``rate`` (by default the f32 CUDA cores' peak), in ms, on the H100
+    SXM data sheet."""
     t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
-    t_ops = flops / F32_FLOP_PER_S * 1e3
+    t_ops = passes * flops / rate * 1e3
     return {"bound_ms": max(t_bytes, t_ops),
             "bound_by": "bytes" if t_bytes >= t_ops else "operations",
             "bytes": nbytes, "flops": flops}
@@ -650,26 +699,45 @@ def phase_entry_full(full: dict) -> list[dict]:
     slot_live = pl.weights[k] != 0
     blk = pl.cols[k][slot_live]
     n_i, n_j = len(set((blk // N_BLK).tolist())), len(set((blk % N_BLK).tolist()))
-    bound6 = _bound(n_i * S * br * 4 + n_j * S * bt * 4 + br * bt * 4
-                    + pl.cols.shape[1] * 8,
-                    int(slot_live.sum()) * 2 * S * br * bt)
+    nbytes6 = n_i * S * br * 4 + n_j * S * bt * 4 + br * bt * 4 + pl.cols.shape[1] * 8
+    flops6 = int(slot_live.sum()) * 2 * S * br * bt
+    # the kernel's tensor-core passes: 3xTF32 for f32 x f32 (A, B are f32 here)
+    passes = 1 + (A.dtype == torch.float32) + (B.dtype == torch.float32)
+    bound6 = _bound(nbytes6, flops6, TF32_FLOP_PER_S, passes)
+    bound6_f32 = _bound(nbytes6, flops6)
     lib6 = lambda: _local_dense_scan(A, B, pl.cols[k], pl.weights[k], M_BLK, N_BLK)
     lib6_err = float((lib6() - C_tilde[k]).abs().max())
     check(lib6_err <= row6["tol"],
           f"dense-scan yardstick disagrees with coded_accum: {lib6_err} > {row6['tol']}")
+    ms6 = time_ms(run6)
+    # all eight workers' launches as a whole, beside the dense scan for all
+    # eight (which also multiplies the pad slots, at weight 0)
+    run_all = lambda: [coded_accum.coded_accum(A, B, cols[j], wts[j], m=M_BLK, n=N_BLK)
+                       for j in range(WORKERS)]
+    lib_all = lambda: [_local_dense_scan(A, B, pl.cols[j], pl.weights[j], M_BLK, N_BLK)
+                       for j in range(WORKERS)]
     kernels.append({
         "name": "coded_accum", "route": "cuda",
         "source": "src/repro_torch/kernels/csrc/coded_accum.cu",
         "replaces": "src/repro/kernels/coded_accum.py:44",
         "launches": launches6["coded_accum"], "max_abs_err": row6["err"],
-        "tol": row6["tol"], "ms": time_ms(run6), "plain_ms": time_ms(plain6, reps=3),
+        "tol": row6["tol"], "ms": ms6, "plain_ms": time_ms(plain6, reps=3),
         "bound_ms": bound6["bound_ms"], "bound_by": bound6["bound_by"],
+        "bound_rate": f"{passes}xTF32 on the tensor cores, {TF32_FLOP_PER_S:.3g} FLOP/s",
+        "bound_f32_cores_ms": bound6_f32["bound_ms"],
+        "tflops": flops6 / ms6 / 1e9,
+        "copy_path": coded_accum.copy_path(A.dtype, B.dtype, R, T, br, bt,
+                                           A.data_ptr(), B.data_ptr()),
         "library_ms": time_ms(lib6),
         "library": "the port's _local_dense_scan: L torch.matmul calls, TF32 off",
         "library_calls": int(pl.cols.shape[1]), "library_max_abs_err": lib6_err,
+        "all_workers_ms": time_ms(run_all, reps=3),
+        "library_all_workers_ms": time_ms(lib_all, reps=3),
+        "all_workers_live_slots": int(live_slots.sum()),
+        "library_all_workers_calls": int(pl.cols.size),
         "shape": {"worker": k, "s": S, "br": br, "bt": bt,
                   "L": int(pl.cols.shape[1]), "live_slots": int(slot_live.sum()),
-                  "bytes": bound6["bytes"], "flops": bound6["flops"]}})
+                  "bytes": nbytes6, "flops": flops6}})
     return kernels
 
 
@@ -716,6 +784,7 @@ def main() -> int:
     phase_build()
     phase_kernels()
     phase_entry_kernels()
+    phase_accum_tiles()
     kernels, full = phase_main()
     kernels += phase_entry_full(full)
     emit(kernels=kernels)

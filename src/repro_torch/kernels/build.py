@@ -40,9 +40,9 @@ SIGNATURES = {
     },
     "coded_accum": {
         # A, a_dtype, B, b_dtype, cols, weights, out, s, r, t, br, bt, n, L,
-        # stream
+        # wide, stream
         "coded_accum": [_P, _I, _P, _I, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I,
-                        _P],
+                        _I, _P],
     },
 }
 

@@ -9,6 +9,12 @@ package's Pallas kernel ``coded_accum`` in
   C~ = sum_l weights[l] * A[:, i*br:+br]^T @ B[:, j*bt:+bt] with
   (i, j) = divmod(cols[l], n), (r/m, t/n) f32.
 
+The kernel runs on the tensor cores in 3xTF32 (``mma.sync``), fed by a
+``cp.async`` ring; the source's header says why.  It has two copy paths,
+both instances of the one kernel: 16-byte copies where the operands' rows,
+blocks and addresses allow them, else one element a copy.  ``copy_path``
+makes the choice from the shapes.
+
 The wrapper takes CUDA tensors only: it checks device, dtype, shape,
 contiguity and the range of ``cols``, allocates its output with
 ``torch.empty``, launches on the current stream, raises on a nonzero
@@ -32,11 +38,27 @@ DTYPES = {torch.float32: 0, torch.bfloat16: 1}
 _MAX_GRID_Y = 65535
 _TILE = 128             # output rows and columns of one thread block
 _INT_MAX = 2**31 - 1
+_WIDE_BYTES = 16        # one cp.async copy of the wide path
 
 
 def reset_launch_counts() -> None:
     for name in LAUNCHES:
         LAUNCHES[name] = 0
+
+
+def copy_path(a_dtype: torch.dtype, b_dtype: torch.dtype, r: int, t: int,
+              br: int, bt: int, a_addr: int = 0, b_addr: int = 0) -> str:
+    """The kernel's copy path for these operands: ``"wide"`` (16-byte
+    copies) where each operand's row (r or t elements), column block (br or
+    bt) and address lie on 16 bytes, so that every copy is whole and
+    aligned; ``"narrow"`` (one element a copy) otherwise."""
+    for dtype, width, block, addr in ((a_dtype, r, br, a_addr),
+                                      (b_dtype, t, bt, b_addr)):
+        size = dtype.itemsize
+        if (width * size) % _WIDE_BYTES or (block * size) % _WIDE_BYTES \
+                or addr % _WIDE_BYTES:
+            return "narrow"
+    return "wide"
 
 
 def coded_accum(A: torch.Tensor, B: torch.Tensor, cols: torch.Tensor,
@@ -78,13 +100,15 @@ def coded_accum(A: torch.Tensor, B: torch.Tensor, cols: torch.Tensor,
     if out.numel() == 0:
         return out
     cols32 = cols.to(torch.int32)
+    wide = copy_path(A.dtype, B.dtype, r, t, br, bt, A.data_ptr(),
+                     B.data_ptr()) == "wide"
     lib = load_library("coded_accum")
     with torch.cuda.device(B.device):
         stream = torch.cuda.current_stream().cuda_stream
         err = lib.coded_accum(A.data_ptr(), DTYPES[A.dtype], B.data_ptr(),
                               DTYPES[B.dtype], cols32.data_ptr(),
                               weights.data_ptr(), out.data_ptr(), s, r, t, br,
-                              bt, n, L, stream)
+                              bt, n, L, int(wide), stream)
     raise_on_error(err, "coded_accum")
     LAUNCHES["coded_accum"] += 1
     return out

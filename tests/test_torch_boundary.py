@@ -1,7 +1,8 @@
 """The port's boundary: no JAX, no ``repro``, no hidden CPU carry-on.
 
-* every ``repro_torch`` module and ``chip_smoke`` import in a process where
-  ``jax``, ``ml_dtypes`` and ``repro`` cannot be imported at all;
+* every ``repro_torch`` module, ``chip_smoke`` and ``chip_variants`` import
+  in a process where ``jax``, ``ml_dtypes`` and ``repro`` cannot be
+  imported at all;
 * no port file names them;
 * ``bind()`` with no CUDA device raises instead of running on the CPU;
 * a kernel wrapper given CPU tensors takes the plain version and never
@@ -35,6 +36,7 @@ names = [m.name for m in pkgutil.walk_packages(repro_torch.__path__,
 for name in names:
     importlib.import_module(name)
 import chip_smoke
+import chip_variants
 from repro_torch import CodedMatmulConfig, CodedOp, plan
 leaked = sorted(m for m in sys.modules if sys.modules[m] is not None and (
     m.split(".")[0] in ("jax", "jaxlib", "ml_dtypes", "repro")))
@@ -58,7 +60,8 @@ _FORBIDDEN = re.compile(
 
 @pytest.mark.parametrize("path", sorted(
     str(p.relative_to(ROOT)) for p in
-    [*PORT.rglob("*.py"), *PORT.rglob("*.cu"), ROOT / "chip_smoke.py"]))
+    [*PORT.rglob("*.py"), *PORT.rglob("*.cu"), ROOT / "chip_smoke.py",
+     ROOT / "chip_variants.py"]))
 def test_port_sources_name_no_jax_and_no_repro(path):
     text = (ROOT / path).read_text()
     hits = [m.group(0) for m in _FORBIDDEN.finditer(text)]
