@@ -3,7 +3,14 @@
     python3 chip_smoke.py
 
 Builds the CUDA kernels of ``src/repro_torch`` (nvcc, into ``build/``),
-holds each against its plain PyTorch version on the card, then runs the
+and prints the SpMM kernel's design (column blocks and columns a thread
+block, its ring of staged B) with ptxas's registers and spills of each of
+its instances.  It holds each kernel against its plain PyTorch version on
+the card -- the SpMM kernels also at the edges of their design (a last
+group of column blocks cut short, column blocks with no live slot, every
+slot padded, one slot, disjoint row-blocks in a group, every slot on one B
+tile, a ring that wraps with a ragged bt), each launched twice and held
+bitwise equal -- then runs the
 main path -- ``plan -> bind -> apply`` of a coded sparse product
 C = A^T B -- at full size (s=16384, r=t=8192, m=n=2, N=8 workers, 8x8
 tiles at 10% block density: the geometry of the repo's coded-matmul
@@ -116,6 +123,40 @@ def phase_device() -> dict:
 LIBRARIES = ("spmm_block", "coded_accum")
 
 
+#: the template arguments of an spmm_block_fused_kernel instance, as the
+#: Itanium ABI mangles them: <bs, tile type, DECODE, PLAIN>
+_SPMM_INSTANCE = re.compile(
+    r"spmm_block_fused_kernelILi(\d+)E(f|13__nv_bfloat16|a)Lb([01])ELb([01])E")
+_TILE_TYPES = {"f": "float32", "13__nv_bfloat16": "bfloat16", "a": "int8"}
+
+
+def spmm_instances(log: str) -> dict:
+    """ptxas's registers and spills of each spmm_block kernel instance, by
+    "bs=<bs> <tile type> <form>" (form: fused, fused_decode or plain)."""
+    found, name = {}, None
+    for line in log.splitlines():
+        entry = re.search(r"Compiling entry function '(\S+)'", line)
+        if entry:
+            m = _SPMM_INSTANCE.search(entry.group(1))
+            name = None
+            if m:
+                bs, tv, decode, plain = m.groups()
+                form = "plain" if plain == "1" else (
+                    "fused_decode" if decode == "1" else "fused")
+                name = f"bs={bs} {_TILE_TYPES[tv]} {form}"
+                found[name] = {}
+            continue
+        if name is None:
+            continue
+        spill = re.search(r"(\d+) bytes spill stores, (\d+) bytes spill loads", line)
+        if spill:
+            found[name]["spill_bytes"] = int(spill.group(1)) + int(spill.group(2))
+        used = re.search(r"Used (\d+) registers", line)
+        if used:
+            found[name]["registers"] = int(used.group(1))
+    return found
+
+
 def _build_one(name: str) -> dict:
     from repro_torch.kernels import build
 
@@ -124,19 +165,30 @@ def _build_one(name: str) -> dict:
     build.load_library(name)
     log = build.BUILD_LOG.get(name, "")
     spills = [int(x) for x in re.findall(r"(\d+) bytes spill (?:stores|loads)", log)]
-    return {"library": str(path.relative_to(ROOT)),
-            "seconds": time.perf_counter() - t0,
-            "ptxas": sorted({ln.split(":", 1)[1].strip() for ln in log.splitlines()
-                             if "Used" in ln and "registers" in ln}),
-            "max_spill_bytes": max(spills, default=0)}
+    out = {"library": str(path.relative_to(ROOT)),
+           "seconds": time.perf_counter() - t0,
+           "ptxas": sorted({ln.split(":", 1)[1].strip() for ln in log.splitlines()
+                            if "Used" in ln and "registers" in ln}),
+           "max_spill_bytes": max(spills, default=0)}
+    if name == "spmm_block":
+        out["instances"] = spmm_instances(log)
+        check(len(out["instances"]) == 18,
+              f"spmm_block: {len(out['instances'])} kernel instances in ptxas's log")
+    return out
 
 
-def phase_build() -> None:
-    """Every library built at once, one nvcc each."""
+def phase_build() -> dict:
+    """Every library built at once, one nvcc each; the spmm_block kernel's
+    design and its instances' registers and spills."""
+    from repro_torch.kernels import spmm_block
+
     t0 = time.perf_counter()
     with concurrent.futures.ThreadPoolExecutor(len(LIBRARIES)) as pool:
         libs = dict(zip(LIBRARIES, pool.map(_build_one, LIBRARIES)))
-    emit(phase="build", seconds=time.perf_counter() - t0, libraries=libs)
+    design = {f"bs={bs}": spmm_block.kernel_geometry(bs) for bs in (8, 16)}
+    emit(phase="build", seconds=time.perf_counter() - t0, libraries=libs,
+         spmm_block_design=design)
+    return {"design": design, "instances": libs["spmm_block"]["instances"]}
 
 
 # ------------------------------- phase 3 ------------------------------------
@@ -152,28 +204,71 @@ def _quantize(vals: np.ndarray, dtype: str) -> torch.Tensor:
 
 def _hold(name: str, vals, src, wsl, dvec, B, bt: int, t_tile: int = 128) -> dict:
     """Both kernels against their plain versions on the same CUDA tensors,
-    and the bitwise fused == dvec (x) two-step check."""
+    the bitwise fused == dvec (x) two-step check, and a second launch of
+    each equal to the first, bit for bit."""
     from repro_torch.kernels import ref, spmm_block
 
-    two = spmm_block.spmm_block_fused(vals, src, wsl, B, bt=bt, t_tile=t_tile)
-    fused = spmm_block.spmm_block_fused_decode(vals, src, wsl, dvec, B, bt=bt,
-                                               t_tile=t_tile)
+    def both():
+        return (spmm_block.spmm_block_fused(vals, src, wsl, B, bt=bt, t_tile=t_tile),
+                spmm_block.spmm_block_fused_decode(vals, src, wsl, dvec, B, bt=bt,
+                                                   t_tile=t_tile))
+
+    two, fused = both()
+    two_again, fused_again = both()
     two_ref = ref.spmm_block_fused_ref(vals, src, wsl, B, bt)
     fused_ref = ref.spmm_block_fused_decode_ref(vals, src, wsl, dvec, B, bt)
     torch.cuda.synchronize()
     K = vals.shape[1] * vals.shape[2]
-    err_two = float((two - two_ref).abs().max())
-    err_fused = float((fused - fused_ref).abs().max())
-    tol_two = sum_tol(K, float(two_ref.abs().max()))
-    tol_fused = sum_tol(K, float(fused_ref.abs().max()))
+    err_two = float((two - two_ref).abs().max()) if two.numel() else 0.0
+    err_fused = float((fused - fused_ref).abs().max()) if fused.numel() else 0.0
+    tol_two = sum_tol(K, float(two_ref.abs().max()) if two.numel() else 0.0)
+    tol_fused = sum_tol(K, float(fused_ref.abs().max()) if fused.numel() else 0.0)
     bitwise = bool(torch.equal(fused, dvec[:, None, None] * two[None]))
-    out = {"case": name, "err_fused": err_two, "tol_fused": tol_two,
+    again = bool(torch.equal(two, two_again) and torch.equal(fused, fused_again))
+    out = {"case": name, "copy_path": spmm_block.copy_path(B),
+           "err_fused": err_two, "tol_fused": tol_two,
            "err_fused_decode": err_fused, "tol_fused_decode": tol_fused,
-           "bitwise_fused_decode_eq_dvec_x_two_step": bitwise}
+           "bitwise_fused_decode_eq_dvec_x_two_step": bitwise,
+           "bitwise_second_launch": again}
     check(err_two <= tol_two, f"{name}: two-step kernel vs plain {err_two} > {tol_two}")
     check(err_fused <= tol_fused, f"{name}: fused-decode kernel vs plain {err_fused} > {tol_fused}")
     check(bitwise, f"{name}: fused decode != dvec * two-step, bitwise")
+    check(again, f"{name}: a second launch differs from the first")
     return out
+
+
+def _edge_case(rng, bs: int, G: int, kind: str):
+    """Operands (numpy) at one edge of the kernel's design: vals, src, w,
+    B, bt.  Column blocks come in groups of G per thread block; B's keys
+    (row-block, column group) in chunks of the ring."""
+    n, bt, s, CB, L = 2, 40, 64 * bs, G + 3, 6
+    if kind == "CB below G":
+        CB = max(1, G // 2 - 1)
+    if kind == "L = 1":
+        L = 1
+    if kind == "ring wraps, ragged bt, 4-byte copies":
+        n, bt, s, L = 3, 251, 256 * bs, 24
+    vals = rng.standard_normal((CB, L, bs, bs)).astype(np.float32)
+    src = np.stack([rng.integers(0, s // bs, (CB, L)),
+                    rng.integers(0, n, (CB, L))], -1).astype(np.int32)
+    w = rng.standard_normal((CB, L)).astype(np.float32)
+    w[rng.random((CB, L)) < 0.2] = 0.0                   # pads among the slots
+    if kind == "column blocks with no live slot":
+        w[::3] = 0.0
+    if kind == "all slots padded":
+        w[:] = 0.0
+    if kind == "disjoint row-blocks in a group":
+        per = (s // bs) // CB                            # cb reads its own rows
+        src[..., 0] = np.arange(CB)[:, None] * per + rng.integers(0, per, (CB, L))
+    if kind == "one B tile for every slot":
+        src[..., 0], src[..., 1] = 5, 1
+    B = rng.standard_normal((s, n * bt)).astype(np.float32)
+    return vals, src, w, B, bt
+
+
+EDGE_KINDS = ("CB no multiple of G", "CB below G", "column blocks with no live slot",
+              "all slots padded", "L = 1", "disjoint row-blocks in a group",
+              "one B tile for every slot", "ring wraps, ragged bt, 4-byte copies")
 
 
 def phase_kernels() -> None:
@@ -220,6 +315,33 @@ def phase_kernels() -> None:
         cases.append(_hold(f"s={s} br=bt=512 worker 0 {dtype}", dpack.vals[0],
                            dpack.src[0], wsl[0], dvec, B, t // N_BLK))
     emit(phase="kernel_vs_plain", shapes="mid", cases=cases)
+    phase_edges(dev, rng)
+
+
+def phase_edges(dev, rng) -> None:
+    """The kernel at the edges of its design, bs 8 and 16: column blocks
+    that do not fill the last group, column blocks with no live slot, every
+    slot padded, one slot, a group whose column blocks read disjoint rows,
+    every slot on one B tile, and a ring that wraps with a ragged bt copied
+    4 bytes at a time."""
+    from repro_torch.kernels import spmm_block
+
+    cases = []
+    for bs in (8, 16):
+        G = spmm_block.kernel_geometry(bs)["G"]
+        for kind in EDGE_KINDS:
+            dtype = ("float32", "bfloat16", "int8")[len(cases) % 3]
+            vals, src, w, B, bt = _edge_case(rng, bs, G, kind)
+            dvec = rng.standard_normal(4).astype(np.float32)
+            args = (_quantize(vals, dtype).to(dev), torch.from_numpy(src).to(dev),
+                    torch.from_numpy(w).to(dev), torch.from_numpy(dvec).to(dev),
+                    torch.from_numpy(B).to(dev), bt)
+            cases.append(_hold(f"bs={bs} G={G} CB={vals.shape[0]} "
+                               f"L={vals.shape[1]} {kind} {dtype}", *args))
+            if kind == "all slots padded":
+                two = spmm_block.spmm_block_fused(*args[:3], args[4], bt=bt)
+                check(not bool(two.any()), f"bs={bs} {kind}: output not all zero")
+    emit(phase="kernel_vs_plain", shapes="edges", cases=cases)
 
 
 def _held(name: str, got: torch.Tensor, want: torch.Tensor, K: int) -> dict:
@@ -420,7 +542,7 @@ def sparse_candidates(make_bsr, dense_b: torch.Tensor) -> dict:
             "torch.sparse_csr_tensor @ B": csr_call}
 
 
-def phase_main() -> tuple[list[dict], dict]:
+def phase_main(built: dict) -> tuple[list[dict], dict]:
     """The main path at full size; its kernels' rows, and the operands the
     entry-point phase reuses."""
     from repro_torch.coded import CodedMatmulConfig, from_plan, plan
@@ -570,18 +692,26 @@ def phase_main() -> tuple[list[dict], dict]:
         got, want = run(), plain()
         err = float((got - want).abs().max())
         tol = sum_tol(K, float(want.abs().max()))
-        del got, want
+        del want
+        again = bool(torch.equal(got, run()))
+        del got
         check(err <= tol, f"{name} at the main-path shape: {err} > {tol}")
+        check(again, f"{name} at the main-path shape: a second launch differs")
         bound = launch_bound(dpack, wsl, k, bt, mn, decode)
         kernels.append({
             "name": name, "route": "cuda",
             "source": "src/repro_torch/kernels/csrc/spmm_block.cu",
             "replaces": f"src/repro/kernels/spmm_block.py:{line}",
             "launches": main_launches[name], "max_abs_err": err, "tol": tol,
+            "bitwise_second_launch": again,
             "ms": time_ms(run), "plain_ms": time_ms(plain, reps=3),
             "bound_ms": bound["bound_ms"], "bound_by": bound["bound_by"],
             **lib, "library_operands": "the worker's weighted tiles, B's n "
             "column groups stacked",
+            "design": built["design"][f"bs={BS}"],
+            "copy_path": spmm_block.copy_path(B),
+            "ptxas": built["instances"][
+                f"bs={BS} float32 {'fused_decode' if decode else 'fused'}"],
             "shape": {"worker": k, "CB": int(dpack.vals.shape[1]),
                       "L": int(dpack.vals.shape[2]), "bs": BS, "bt": bt,
                       "mn": mn if decode else None,
@@ -594,7 +724,7 @@ def phase_main() -> tuple[list[dict], dict]:
 
 # ------------------------------- phase 5 ------------------------------------
 
-def phase_entry_full(full: dict) -> list[dict]:
+def phase_entry_full(full: dict, built: dict) -> list[dict]:
     """The kernel entry points at the main path's width, on its operands:
     ``ops.spmm_block`` over the whole block-ELL of A (the uncoded A^T B, one
     launch) and ``ops.coded_accum`` for every worker of the main plan (one
@@ -662,6 +792,8 @@ def phase_entry_full(full: dict) -> list[dict]:
     run5 = lambda: spmm_block.spmm_block(vals, idx, B)
     plain5 = lambda: ref.spmm_block_ref(vals, idx, B)
     row5 = _held("spmm_block, full width", C5, plain5(), ell.vals.shape[1] * BS)
+    again5 = bool(torch.equal(C5, run5()))
+    check(again5, "spmm_block at full width: a second launch differs")
     live = torch.arange(vals.shape[1], device=dev)[None, :] < torch.from_numpy(
         ell.nnzb).to(dev)[:, None]
     n_live = int(live.sum())
@@ -681,9 +813,13 @@ def phase_entry_full(full: dict) -> list[dict]:
         "source": "src/repro_torch/kernels/csrc/spmm_block.cu",
         "replaces": "src/repro/kernels/spmm_block.py:95",
         "launches": launches5["spmm_block"], "max_abs_err": row5["err"],
-        "tol": row5["tol"], "ms": time_ms(run5), "plain_ms": time_ms(plain5, reps=3),
+        "tol": row5["tol"], "bitwise_second_launch": again5,
+        "ms": time_ms(run5), "plain_ms": time_ms(plain5, reps=3),
         "bound_ms": bound5["bound_ms"], "bound_by": bound5["bound_by"],
         **lib5, "library_operands": "A^T from the block-ELL",
+        "design": built["design"][f"bs={BS}"],
+        "copy_path": spmm_block.copy_path(B),
+        "ptxas": built["instances"][f"bs={BS} float32 plain"],
         "shape": {"CB": int(vals.shape[0]), "L": int(vals.shape[1]), "bs": BS,
                   "t": T, "live_tiles": n_live, "bytes": bound5["bytes"],
                   "flops": bound5["flops"]}})
@@ -781,12 +917,12 @@ def main() -> int:
     import repro_torch  # noqa: F401  (fails here when run outside the repo)
 
     info = phase_device()
-    phase_build()
+    built = phase_build()
     phase_kernels()
     phase_entry_kernels()
     phase_accum_tiles()
-    kernels, full = phase_main()
-    kernels += phase_entry_full(full)
+    kernels, full = phase_main(built)
+    kernels += phase_entry_full(full, built)
     emit(kernels=kernels)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": info["name"], "count": info["count"]}}),

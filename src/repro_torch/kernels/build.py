@@ -29,14 +29,18 @@ _P, _I = ctypes.c_void_p, ctypes.c_int
 #: the C signature of every entry point, by library
 SIGNATURES = {
     "spmm_block": {
-        # vals, vals_dtype, bs, src, wslot, B, out, CB, L, t, bt, t_tile, stream
-        "spmm_block_fused": [_P, _I, _I, _P, _P, _P, _P, _I, _I, _I, _I, _I, _P],
-        # vals, vals_dtype, bs, src, wslot, dvec, B, out, CB, L, t, bt, mn,
-        # t_tile, stream
-        "spmm_block_fused_decode": [_P, _I, _I, _P, _P, _P, _P, _P, _I, _I, _I,
-                                    _I, _I, _I, _P],
-        # vals, vals_dtype, bs, idx, B, out, CB, L, t, t_tile, stream
-        "spmm_block": [_P, _I, _I, _P, _P, _P, _I, _I, _I, _I, _P],
+        # vals, vals_dtype, bs, src, order, wslot, B, out, CB, L, s, t, bt,
+        # wide, stream
+        "spmm_block_fused": [_P, _I, _I, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I,
+                             _I, _P],
+        # vals, vals_dtype, bs, src, order, wslot, dvec, B, out, CB, L, s, t,
+        # bt, mn, wide, stream
+        "spmm_block_fused_decode": [_P, _I, _I, _P, _P, _P, _P, _P, _P, _I, _I,
+                                    _I, _I, _I, _I, _I, _P],
+        # vals, vals_dtype, bs, idx, order, B, out, CB, L, s, t, wide, stream
+        "spmm_block": [_P, _I, _I, _P, _P, _P, _P, _I, _I, _I, _I, _I, _P],
+        # bs, int[7] out
+        "spmm_block_geometry": [_I, _P],
     },
     "coded_accum": {
         # A, a_dtype, B, b_dtype, cols, weights, out, s, r, t, br, bt, n, L,
@@ -47,8 +51,8 @@ SIGNATURES = {
 }
 
 _LOADED: dict[str, ctypes.CDLL] = {}
-#: ptxas's report (registers, shared memory, spills) of each build made by
-#: this process, by library
+#: ptxas's report (registers, shared memory, spills) of each library this
+#: process built or found built, by library (kept beside the library)
 BUILD_LOG: dict[str, str] = {}
 
 
@@ -70,10 +74,15 @@ def library_path(name: str) -> pathlib.Path:
 def build(name: str) -> pathlib.Path:
     """Compile ``csrc/<name>.cu`` unless its library is built; its path."""
     out = library_path(name)
+    log = out.with_suffix(".log")
     if out.exists():
+        if log.exists():
+            BUILD_LOG.setdefault(name, log.read_text())
         return out
     BUILD_DIR.mkdir(parents=True, exist_ok=True)
     fd, tmp = tempfile.mkstemp(suffix=".so", dir=BUILD_DIR)
+    os.close(fd)
+    fd, tmp_log = tempfile.mkstemp(suffix=".log", dir=BUILD_DIR)
     os.close(fd)
     try:
         proc = subprocess.run(
@@ -84,10 +93,15 @@ def build(name: str) -> pathlib.Path:
                 f"nvcc failed on {name}.cu (exit {proc.returncode}):\n"
                 f"{proc.stdout}{proc.stderr}")
         BUILD_LOG[name] = proc.stdout + proc.stderr
-        os.replace(tmp, out)   # atomic: a concurrent loader sees all or nothing
+        # both atomically, the log first: whoever finds the library built
+        # finds its whole log, and a concurrent loader sees all or nothing
+        pathlib.Path(tmp_log).write_text(BUILD_LOG[name])
+        os.replace(tmp_log, log)
+        os.replace(tmp, out)
     finally:
-        if os.path.exists(tmp):
-            os.unlink(tmp)
+        for path in (tmp, tmp_log):
+            if os.path.exists(path):
+                os.unlink(path)
     return out
 
 

@@ -16,6 +16,12 @@ points, the counterparts of the JAX package's Pallas kernels in
   C = A^T B, the same slot loop with w = 1 and one column group of width t,
   (CB*bs, t) f32.
 
+The kernel streams B through shared memory once per group of column
+blocks, so each column block walks its slots in B's address order: each
+wrapper makes that order (``slot_order``) on the device for every launch,
+with no host synchronisation, and the kernel reads B by the copy path
+``copy_path`` names.
+
 Each wrapper takes CUDA tensors only: it checks device, dtype, shape,
 contiguity and index ranges, allocates its output with ``torch.empty``,
 launches on the current stream, raises on a nonzero ``cudaError_t``, and
@@ -24,6 +30,8 @@ tensor, plain version for a CPU tensor) is ``repro_torch.kernels.ops``'s.
 """
 
 from __future__ import annotations
+
+import ctypes
 
 import torch
 
@@ -42,6 +50,11 @@ BLOCK_SIZES = (8, 16)
 _MAX_THREADS = 1024
 _MAX_GRID_Y = 65535
 _INT_MAX = 2**31 - 1
+#: the kernel's design, as ``spmm_block_geometry`` reports it
+_GEOMETRY_KEYS = ("G", "cols", "stages", "chunk_rows", "a_depth", "threads",
+                  "smem_bytes")
+#: bytes a copy-engine copy of B needs its rows and start on
+_WIDE_BYTES = 16
 
 
 def reset_launch_counts() -> None:
@@ -49,9 +62,49 @@ def reset_launch_counts() -> None:
         LAUNCHES[name] = 0
 
 
+def slot_order(src: torch.Tensor, bs_rows: int) -> torch.Tensor:
+    """Each column block's slots sorted by the B tile they read: int32
+    (..., CB, L), a stable sort by key = column group * bs_rows + row-block.
+
+    ``src`` is (..., CB, L, 2) [row-block, column group] (a fused pack) or
+    (..., CB, L, 1) [row-block] (a block-ELL's idx); ``bs_rows`` is s / bs.
+    Any ``bs_rows`` above the largest row-block gives the same permutation.
+    It depends on ``src`` alone, so the rebinds that change only the slot
+    weights leave it valid.  Runs where ``src`` lies, with no host
+    synchronisation.
+    """
+    key = src[..., 0].long()
+    if src.shape[-1] == 2:
+        key = key + src[..., 1].long() * bs_rows
+    return torch.argsort(key, dim=-1, stable=True).to(torch.int32)
+
+
+def copy_path(B: torch.Tensor) -> str:
+    """How the kernel reads this f32 B (s, t): ``"tma"`` (one copy-engine
+    copy a tile) where its rows and start lie on 16 bytes, ``"cp_async_4"``
+    (4-byte copies by the producer warp) otherwise.  The kernel takes the
+    path it is given, and a tensor map the driver refuses is an error."""
+    if (B.shape[-1] * B.element_size()) % _WIDE_BYTES or B.data_ptr() % _WIDE_BYTES:
+        return "cp_async_4"
+    return "tma"
+
+
+def kernel_geometry(bs: int = 8) -> dict:
+    """The design the kernel library was built with, for tile edge ``bs``:
+    the column blocks of a thread block (G), its output columns, the ring's
+    stages and rows a stage, the A tiles a warp has in flight, and the
+    threads and shared bytes (f32 tiles) of a block.  Builds the library if
+    need be."""
+    out = (ctypes.c_int * len(_GEOMETRY_KEYS))()
+    raise_on_error(load_library("spmm_block").spmm_block_geometry(
+        bs, ctypes.cast(out, ctypes.c_void_p)), "spmm_block_geometry")
+    return dict(zip(_GEOMETRY_KEYS, out))
+
+
 def _check_tiles(vals, t_tile: int, ncols: int) -> tuple[int, int, int]:
     """vals (CB, L, bs, bs) of a dtype and edge the kernel is built for,
-    and a t_tile that tiles ncols output columns in one launch."""
+    on 16 bytes (the kernel copies tiles 16 bytes at a time), and a t_tile
+    that tiles ncols output columns in one launch."""
     if vals.dtype not in VALS_DTYPES:
         raise ValueError(f"vals dtype {vals.dtype} not in {list(VALS_DTYPES)}")
     if vals.dim() != 4 or vals.shape[2] != vals.shape[3]:
@@ -59,10 +112,29 @@ def _check_tiles(vals, t_tile: int, ncols: int) -> tuple[int, int, int]:
     CB, L, bs, _ = vals.shape
     if bs not in BLOCK_SIZES:
         raise ValueError(f"block size {bs} not in {BLOCK_SIZES}")
+    if vals.data_ptr() % 16:
+        raise ValueError("vals must start on a 16-byte boundary")
     if not 1 <= t_tile <= _MAX_THREADS or -(-ncols // t_tile) > _MAX_GRID_Y:
         raise ValueError(f"t_tile={t_tile} does not tile {ncols} columns in "
                          "one launch")
     return CB, L, bs
+
+
+def _check_indices(src, bs_rows: int, n_groups: int) -> None:
+    """src indices in range (an index out of range would read outside B): on
+    the device, one small reduction and one synchronisation."""
+    plain = src.shape[-1] == 1
+    lo, hi = src.amin(dim=(0, 1)), src.amax(dim=(0, 1))
+    got = torch.cat([lo, hi]).tolist()
+    k = src.shape[-1]
+    lo_, hi_ = got[:k], got[k:]
+    if plain and (lo_[0] < 0 or hi_[0] >= bs_rows):
+        raise ValueError(f"idx outside [0, {bs_rows}): the block-ELL was "
+                         "built for another B")
+    if min(lo_) < 0 or hi_[0] >= bs_rows or (not plain and hi_[1] >= n_groups):
+        raise ValueError(
+            f"src indices outside [0, {bs_rows}) x [0, {n_groups}): the pack "
+            "was built for other operands")
 
 
 def _check_operands(vals, src, wslot, B, bt: int, t_tile: int, dvec=None):
@@ -89,17 +161,10 @@ def _check_operands(vals, src, wslot, B, bt: int, t_tile: int, dvec=None):
         raise ValueError(f"s={s} not divisible by block size {bs}")
     if dvec is not None and dvec.dim() != 1:
         raise ValueError(f"dvec must be 1-D, got {tuple(dvec.shape)}")
-    if max(CB, L, s, t) > _INT_MAX:
+    if max(CB, L, s, t) > _INT_MAX or (s // bs) * (t // bt) > _INT_MAX - 64:
         raise ValueError("operand dimension beyond the kernel's 32-bit sizes")
     if CB * L:
-        # an index out of range would read outside B: check on the device,
-        # one small reduction and one synchronisation
-        lo, hi = src.amin(dim=(0, 1)), src.amax(dim=(0, 1))
-        lo_rb, lo_grp, hi_rb, hi_grp = torch.cat([lo, hi]).tolist()
-        if min(lo_rb, lo_grp) < 0 or hi_rb >= s // bs or hi_grp >= t // bt:
-            raise ValueError(
-                f"src indices outside [0, {s // bs}) x [0, {t // bt}): the "
-                "pack was built for other operands")
+        _check_indices(src, s // bs, t // bt)
     return CB, L, bs, s, t
 
 
@@ -107,19 +172,23 @@ def spmm_block_fused(vals: torch.Tensor, src: torch.Tensor,
                      wslot: torch.Tensor, B: torch.Tensor, *, bt: int,
                      t_tile: int = 128) -> torch.Tensor:
     """C~ = sum_l wslot[cb,l] * vals[cb,l]^T @ B[src rows, src column group]
-    on the card: (CB * bs, bt) f32.  ``t_tile`` is the output columns of one
-    thread block (its thread count)."""
+    on the card: (CB * bs, bt) f32.
+
+    ``t_tile`` is the JAX signature's column tile: it is checked as there
+    (1 to 1024, at most 65535 tiles), and the kernel does not use it; its
+    own column tile is fixed when it is built (``kernel_geometry``)."""
     CB, L, bs, s, t = _check_operands(vals, src, wslot, B, bt, t_tile)
     out = torch.empty((CB * bs, bt), dtype=torch.float32, device=B.device)
     if out.numel() == 0:
         return out
+    order = slot_order(src, s // bs)
     lib = load_library("spmm_block")
     with torch.cuda.device(B.device):
         stream = torch.cuda.current_stream().cuda_stream
         err = lib.spmm_block_fused(
             vals.data_ptr(), VALS_DTYPES[vals.dtype], bs, src.data_ptr(),
-            wslot.data_ptr(), B.data_ptr(), out.data_ptr(), CB, L, t, bt,
-            t_tile, stream)
+            order.data_ptr(), wslot.data_ptr(), B.data_ptr(), out.data_ptr(),
+            CB, L, s, t, bt, int(copy_path(B) == "tma"), stream)
     raise_on_error(err, "spmm_block_fused")
     LAUNCHES["spmm_block_fused"] += 1
     return out
@@ -131,19 +200,21 @@ def spmm_block_fused_decode(vals: torch.Tensor, src: torch.Tensor,
                             t_tile: int = 128) -> torch.Tensor:
     """The one-launch local product + decode combine on the card:
     (mn, CB * bs, bt) f32, out[c] = dvec[c] * C~ with C~ as
-    ``spmm_block_fused`` computes it, bit for bit."""
+    ``spmm_block_fused`` computes it, bit for bit.  ``t_tile`` as there."""
     CB, L, bs, s, t = _check_operands(vals, src, wslot, B, bt, t_tile, dvec)
     (mn,) = dvec.shape
     out = torch.empty((mn, CB * bs, bt), dtype=torch.float32, device=B.device)
     if out.numel() == 0:
         return out
+    order = slot_order(src, s // bs)
     lib = load_library("spmm_block")
     with torch.cuda.device(B.device):
         stream = torch.cuda.current_stream().cuda_stream
         err = lib.spmm_block_fused_decode(
             vals.data_ptr(), VALS_DTYPES[vals.dtype], bs, src.data_ptr(),
-            wslot.data_ptr(), dvec.data_ptr(), B.data_ptr(), out.data_ptr(),
-            CB, L, t, bt, mn, t_tile, stream)
+            order.data_ptr(), wslot.data_ptr(), dvec.data_ptr(), B.data_ptr(),
+            out.data_ptr(), CB, L, s, t, bt, mn, int(copy_path(B) == "tma"),
+            stream)
     raise_on_error(err, "spmm_block_fused_decode")
     LAUNCHES["spmm_block_fused_decode"] += 1
     return out
@@ -156,7 +227,7 @@ def spmm_block(vals: torch.Tensor, idx: torch.Tensor, B: torch.Tensor, *,
 
     vals (CB, L, bs, bs) f32/bf16/int8, idx (CB, L) int32, B (s, t) f32 or
     bf16.  The kernel reads f32 B: a bf16 B is upcast here, which is exact.
-    ``t_tile`` is the output columns of one thread block (its thread count).
+    ``t_tile`` as in ``spmm_block_fused``.
     """
     check_cuda_operands({"vals": vals, "idx": idx, "B": B}, B)
     if idx.dtype != torch.int32:
@@ -175,22 +246,19 @@ def spmm_block(vals: torch.Tensor, idx: torch.Tensor, B: torch.Tensor, *,
     if max(CB, L, s, t) > _INT_MAX:
         raise ValueError("operand dimension beyond the kernel's 32-bit sizes")
     if CB * L:
-        # an index out of range would read outside B: one small reduction
-        # and one synchronisation
-        lo, hi = torch.aminmax(idx)
-        if int(lo) < 0 or int(hi) >= s // bs:
-            raise ValueError(f"idx outside [0, {s // bs}): the block-ELL was "
-                             "built for another B")
+        _check_indices(idx[..., None], s // bs, 1)
     B = B.float()
     out = torch.empty((CB * bs, t), dtype=torch.float32, device=B.device)
     if out.numel() == 0:
         return out
+    order = slot_order(idx[..., None], s // bs)
     lib = load_library("spmm_block")
     with torch.cuda.device(B.device):
         stream = torch.cuda.current_stream().cuda_stream
         err = lib.spmm_block(vals.data_ptr(), VALS_DTYPES[vals.dtype], bs,
-                             idx.data_ptr(), B.data_ptr(), out.data_ptr(), CB,
-                             L, t, t_tile, stream)
+                             idx.data_ptr(), order.data_ptr(), B.data_ptr(),
+                             out.data_ptr(), CB, L, s, t,
+                             int(copy_path(B) == "tma"), stream)
     raise_on_error(err, "spmm_block")
     LAUNCHES["spmm_block"] += 1
     return out
