@@ -23,6 +23,19 @@ compares both with the dense product too.  The ``coded_accum`` kernel
 shapes that fill whole 128 x 128 tiles and leave ragged edges, on both of
 its copy paths, and its eight launches are timed as a whole beside the
 port's cuBLAS dense scan.
+
+Three phases drive the straggler runtime on the card.  ``device_job``
+runs ``run_device_job`` on the main path's operands (block_sparse with
+the caller's block-ELL, so the pack cache hits: all alive, a dead worker,
+a worker that finished 2 of its 4 chunks; dense_scan all alive), and
+holds ``coded_matmul`` and ``uncoded_matmul_reference`` to ``CodedOp``
+and the dense product.  ``straggler_job`` runs ``run_coded_job`` at the
+paper's square experiment (r = s = t = 150,000, nnz(A) = nnz(B) =
+600,000, m = n = 4, sparse CSR f32 blocks, 28 workers, two of them 10x
+slow) at q = 1 and 4, timing the hybrid decoder beside ``gaussian_decode``
+on the same collected results, plus one dense run on the main path's
+operands.  ``live_job`` runs ``run_live_job`` there with two workers
+sleeping 2 s, and one ``JobMux(source="live")`` batch of three jobs.
 Each phase prints one JSON line; the line before the last lists the
 kernels with their launches, times and bounds, and the last line is
 ``{"ok": true, "device": {...}}``.  Any failed check raises, so the exit
@@ -42,7 +55,9 @@ import re
 import statistics
 import subprocess
 import sys
+import threading
 import time
+import warnings
 
 import numpy as np
 import torch
@@ -66,6 +81,19 @@ M_BLK, N_BLK, WORKERS, DENSITY, SEED = 2, 2, 8, 0.10, 0
 # encode) and the decode D = pinv(M) amplifies that by at most cond(M);
 # printed beside each result.  1e-3 leaves room for cond(M) ~ 100.
 E2E_RTOL = 1e-3
+
+# the paper's square experiment (Section V: random sparse A, B with
+# integer entries 1..4), its sparse code over num_workers + 12 = 28
+# workers with 2 of them 10x slow, as the JAX package's completion
+# benchmark runs it
+PAPER_DIM, PAPER_NNZ, PAPER_MN, PAPER_WORKERS = 150_000, 600_000, 4, 28
+PAPER_SLOW, PAPER_SLOWDOWN, LIVE_SLEEP_S = 2, 10.0, 2.0
+LIVE_SPIN_CYCLES = 10**9  # the card's spin before in-flight inputs are made (~0.5 s)
+# decoded blocks against the true block products, relative to max|block|:
+# the decode runs in f32 with code weights up to (mn)^2 = 256 and rooting
+# coefficients from a float64 solve, so it rounds at ~eps * cond; the
+# main path's limit
+DECODE_RTOL = 1e-3
 
 
 def emit(**fields) -> None:
@@ -719,7 +747,7 @@ def phase_main(built: dict) -> tuple[list[dict], dict]:
                       "bytes": bound["bytes"], "flops": bound["flops"]}})
         torch.cuda.empty_cache()
     return kernels, {"A": A, "B": B, "ell": ell, "plan": op.base_plan,
-                     "ref_C": ref_C}
+                     "ref_C": ref_C, "dead": dead}
 
 
 # ------------------------------- phase 5 ------------------------------------
@@ -877,6 +905,350 @@ def phase_entry_full(full: dict, built: dict) -> list[dict]:
     return kernels
 
 
+# ------------------------------- phase 6 ------------------------------------
+
+def _effective_M(op) -> np.ndarray:
+    M = op.plan_.coefficient_matrix()
+    if op.survivors is not None:
+        M = M[op.survivors]
+    return M[M.any(axis=1)]
+
+
+def phase_device_job(full: dict) -> dict:
+    """``run_device_job`` at the main path's operands, block_sparse with the
+    caller's block-ELL in three survivor cases and dense_scan once; its
+    fused-decode launches counted from 0 in each case.  Then the legacy
+    ``coded_matmul`` against ``CodedOp.apply`` (bit for bit) and
+    ``uncoded_matmul_reference`` against the dense product."""
+    from repro_torch import run_device_job
+    from repro_torch.coded import CodedMatmulConfig, from_plan
+    from repro_torch.core import coded_matmul
+    from repro_torch.core.decoder import DecodingError
+    from repro_torch.kernels import spmm_block
+    from repro_torch.runtime import pack_cache
+
+    A, B, ell, pl, ref_C = (full[x] for x in ("A", "B", "ell", "plan", "ref_C"))
+    scale = float(ref_C.abs().max())
+    op = from_plan(CodedMatmulConfig(backend="block_sparse", block_size=BS), pl).bind()
+    chunks = None
+    for k in [3] + [j for j in range(WORKERS) if j != 3]:
+        mask = np.ones((WORKERS, 4), dtype=bool)
+        mask[k, 2:] = False
+        try:
+            op.with_survivors(mask)
+        except DecodingError:
+            continue
+        chunks = (k, mask)
+        break
+    check(chunks is not None, "no worker with 2 of 4 chunks leaves a decodable plan")
+    dead = np.ones(WORKERS, dtype=bool)
+    dead[full["dead"]] = False
+    cases = [("block_sparse", "all alive", None),
+             ("block_sparse", f"worker {full['dead']} dead", dead),
+             ("block_sparse", f"worker {chunks[0]} finished 2 of 4 chunks", chunks[1]),
+             ("dense_scan", "all alive", None)]
+    L = spmm_block.LAUNCHES
+    rows, total = [], {k: 0 for k in L}
+    for backend, name, mask in cases:
+        hits = pack_cache.cache_stats()["hits"]
+        # ---- one path: counts from 0, one run_device_job, counts read
+        spmm_block.reset_launch_counts()
+        rep = run_device_job(A, B, pl, backend=backend, survivors=mask, repeats=3,
+                             a_sparse=ell if backend == "block_sparse" else None)
+        torch.cuda.synchronize()
+        launches = dict(L)
+        # ------------------------------------------------------------------
+        for k in total:
+            total[k] += launches[k]
+        (C,) = rep.blocks
+        rel = float((C - ref_C).abs().max()) / scale
+        applies = 1 + 3  # the warm-up and the timed repeats
+        want = ({"spmm_block_fused_decode": WORKERS * applies}
+                if backend == "block_sparse" else {})
+        rows.append({"backend": backend, "case": name,
+                     "total_time_ms": rep.total_time * 1e3,
+                     "workers_used": rep.workers_used, "rel_err": rel,
+                     "rtol": E2E_RTOL,
+                     "cond_M": float(np.linalg.cond(_effective_M(
+                         op.with_survivors(mask) if mask is not None else op))),
+                     "launches": launches,
+                     "pack_cache_hits": pack_cache.cache_stats()["hits"] - hits})
+        check(tuple(C.shape) == (R, T) and C.device.type == "cuda",
+              f"device_job {backend} {name}: C {tuple(C.shape)} on {C.device}")
+        check(bool(torch.isfinite(C).all()), f"device_job {backend} {name}: non-finite C")
+        check(rel <= E2E_RTOL, f"device_job {backend} {name}: rel err {rel} > {E2E_RTOL}")
+        check({k: v for k, v in launches.items() if v} == want,
+              f"device_job {backend} {name}: launches {launches}, want {want}")
+        check(backend == "dense_scan" or rows[-1]["pack_cache_hits"] > 0,
+              f"device_job {backend} {name}: the pack cache did not hit")
+        del C, rep
+    # the legacy flat-argument entry and the plain product, after the counts
+    C_op = op(A, B, a_sparse=ell)
+    with warnings.catch_warnings(record=True) as caught:
+        warnings.simplefilter("always")
+        C_legacy = coded_matmul.coded_matmul(A, B, pl, backend="block_sparse",
+                                             a_sparse=ell)
+    legacy_equal = bool(torch.equal(C_legacy, C_op))
+    check(any(issubclass(w.category, DeprecationWarning) for w in caught),
+          "coded_matmul did not warn")
+    check(legacy_equal, "coded_matmul C != CodedOp.apply C, bitwise")
+    del C_op, C_legacy
+    C_plain = coded_matmul.uncoded_matmul_reference(A, B)
+    plain_rel = float((C_plain - ref_C).abs().max()) / scale
+    del C_plain
+    check(plain_rel <= E2E_RTOL, f"uncoded_matmul_reference rel err {plain_rel}")
+    emit(phase="device_job", S=S, R=R, T=T, m=M_BLK, n=N_BLK, workers=WORKERS,
+         repeats=3, cases=rows, launches=total,
+         coded_matmul_bitwise_eq_coded_op=legacy_equal,
+         uncoded_matmul_reference_rel_err=plain_rel)
+    torch.cuda.empty_cache()
+    return total
+
+
+# ------------------------------- phase 7 ------------------------------------
+
+def _rel_err(got: torch.Tensor, want: torch.Tensor) -> float:
+    """max|got - want| / max|want|, on the values of a CSR difference (no
+    block is made dense) or on dense blocks."""
+    from repro_torch.core.blocks import is_csr
+
+    if is_csr(want):
+        check(is_csr(got), f"a decoded block of a sparse job is {got.layout}")
+        diff = (got + want * -1.0).values()
+        return float(diff.abs().max()) / float(want.values().abs().max())
+    return float((got - want).abs().max()) / float(want.abs().max())
+
+
+def _paper_operands(dev: torch.device) -> dict:
+    """The paper's square A and B (integer entries 1..4 at uniformly random
+    positions, repeated positions summed), split m = n = 4 on the host and
+    moved to the card as CSR f32; A's blocks held transposed."""
+    import scipy.sparse as sp
+
+    from repro_torch.core.blocks import blocks_to_device, hold_a_blocks
+    from repro_torch.core.encoder import compute_block_products, split_blocks
+
+    rng = np.random.default_rng(SEED)
+    t0 = time.perf_counter()
+
+    def bernoulli():
+        X = sp.coo_matrix((rng.integers(1, 5, PAPER_NNZ).astype(np.float32),
+                           (rng.integers(0, PAPER_DIM, PAPER_NNZ),
+                            rng.integers(0, PAPER_DIM, PAPER_NNZ))),
+                          shape=(PAPER_DIM, PAPER_DIM)).tocsr()
+        X.sum_duplicates()
+        return X
+
+    A, B = bernoulli(), bernoulli()
+    A_blocks = hold_a_blocks(split_blocks(A, PAPER_MN), dev)
+    B_blocks = blocks_to_device(split_blocks(B, PAPER_MN), dev)
+    prods = compute_block_products(A_blocks, B_blocks)
+    truth = [prods[i][j] for i in range(PAPER_MN) for j in range(PAPER_MN)]
+    torch.cuda.synchronize()
+    return {"A": A_blocks, "B": B_blocks, "truth": truth,
+            "nnz_A": int(A.nnz), "nnz_B": int(B.nnz),
+            "nnz_C": int(sum(b._nnz() for b in truth)),
+            "setup_s": time.perf_counter() - t0}
+
+
+def _decode_times(code, truth, q: int, chunks_used: int) -> dict:
+    """The hybrid decoder and ``gaussian_decode`` on the same collected
+    results: the job's arrivals replayed with its seeded timeline, each
+    decode's median of 3, ended at a synchronisation."""
+    from repro_torch.core.decoder import gaussian_decode
+    from repro_torch.runtime import SlowWorkers, executor
+
+    chunked = code.chunked(q)
+    times = SlowWorkers(PAPER_SLOW, PAPER_SLOWDOWN).chunk_completion_times(
+        chunked.chunk_work(), np.random.default_rng(SEED))
+    state = executor._consume_events(chunked,
+                                     executor._sim_events(chunked, truth, times))
+    check(len(state.pairs) == chunks_used, "replayed arrivals differ from the job's")
+    rows = chunked.rows_of(state.pairs)
+    data = [state.results_by_row[r] for r in rows]
+
+    def median_ms(fn):
+        out, ts = None, []
+        for _ in range(3):
+            t0 = time.perf_counter()
+            out = fn()
+            torch.cuda.synchronize()
+            ts.append((time.perf_counter() - t0) * 1e3)
+        return statistics.median(ts), out
+
+    hybrid_ms, _ = median_ms(lambda: chunked.decode(state.pairs, state.results_by_row))
+    gauss_ms, gauss = median_ms(lambda: gaussian_decode(chunked.M[rows], data))
+    return {"hybrid_ms": hybrid_ms, "gaussian_ms": gauss_ms,
+            "gaussian_rel_err": max(_rel_err(g, w) for g, w in zip(gauss, truth))}
+
+
+def phase_straggler_job(full: dict, dev: torch.device) -> dict:
+    """``run_coded_job`` at the paper's square experiment, sparse CSR f32
+    blocks on the card, q = 1 and 4; then one dense run on the main path's
+    operands split m = n = 4."""
+    from repro_torch.core import schemes
+    from repro_torch.core.blocks import hold_a_blocks
+    from repro_torch.core.encoder import compute_block_products, split_blocks
+    from repro_torch.runtime import SlowWorkers, run_coded_job
+
+    paper = _paper_operands(dev)
+    code = schemes.sparse_code(PAPER_MN, PAPER_MN, PAPER_WORKERS, seed=SEED)
+    dense_block_bytes = (PAPER_DIM // PAPER_MN) ** 2 * 4
+    runs = []
+    for q in (1, 4):
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        base = torch.cuda.memory_allocated()
+        rep = run_coded_job(code, paper["truth"], SlowWorkers(PAPER_SLOW, PAPER_SLOWDOWN),
+                            rng=np.random.default_rng(SEED), keep_blocks=True,
+                            num_chunks=q)
+        peak = torch.cuda.max_memory_allocated() - base
+        layouts = sorted({str(b.layout) for b in rep.blocks})
+        rel = max(_rel_err(g, w) for g, w in zip(rep.blocks, paper["truth"]))
+        runs.append({"blocks": "sparse CSR f32", "q": q,
+                     "sim_compute_time": rep.sim_compute_time,
+                     "workers_used": rep.workers_used, "chunks_used": rep.chunks_used,
+                     "decode_wall_time_ms": rep.decode_wall_time * 1e3,
+                     "decode_stats": rep.decode_stats, "rel_err": rel,
+                     "rtol": DECODE_RTOL, "layouts": layouts,
+                     "peak_device_bytes_added": peak,
+                     "dense_block_bytes": dense_block_bytes,
+                     **_decode_times(code, paper["truth"], q, rep.chunks_used)})
+        check(layouts == ["torch.sparse_csr"], f"straggler_job q={q}: layouts {layouts}")
+        check(peak < dense_block_bytes,
+              f"straggler_job q={q}: the job added {peak} B, one dense block's "
+              f"{dense_block_bytes} B")
+        check(rel <= DECODE_RTOL, f"straggler_job q={q}: rel err {rel} > {DECODE_RTOL}")
+        check(runs[-1]["gaussian_rel_err"] <= DECODE_RTOL,
+              f"straggler_job q={q}: gaussian rel err {runs[-1]['gaussian_rel_err']}")
+        del rep
+
+    # one dense run: the main path's A and B split m = n = 4
+    A_blocks = hold_a_blocks(split_blocks(full["A"], PAPER_MN), dev)
+    B_blocks = split_blocks(full["B"], PAPER_MN)
+    prods = compute_block_products(A_blocks, B_blocks)
+    truth = [prods[i][j] for i in range(PAPER_MN) for j in range(PAPER_MN)]
+    del prods
+    rep = run_coded_job(code, truth, SlowWorkers(PAPER_SLOW, PAPER_SLOWDOWN),
+                        rng=np.random.default_rng(SEED), keep_blocks=True)
+    rel = max(_rel_err(g, w) for g, w in zip(rep.blocks, truth))
+    runs.append({"blocks": f"dense f32 {R // PAPER_MN}x{T // PAPER_MN}", "q": 1,
+                 "sim_compute_time": rep.sim_compute_time,
+                 "workers_used": rep.workers_used, "chunks_used": rep.chunks_used,
+                 "decode_wall_time_ms": rep.decode_wall_time * 1e3,
+                 "decode_stats": rep.decode_stats, "rel_err": rel, "rtol": DECODE_RTOL,
+                 "layouts": sorted({str(b.layout) for b in rep.blocks}),
+                 **_decode_times(code, truth, 1, rep.chunks_used)})
+    check(rel <= DECODE_RTOL, f"straggler_job dense: rel err {rel} > {DECODE_RTOL}")
+    del rep, truth, A_blocks, B_blocks
+    torch.cuda.empty_cache()
+    emit(phase="straggler_job", r=PAPER_DIM, s=PAPER_DIM, t=PAPER_DIM,
+         nnz_A=paper["nnz_A"], nnz_B=paper["nnz_B"], nnz_C=paper["nnz_C"],
+         m=PAPER_MN, n=PAPER_MN, workers=PAPER_WORKERS,
+         straggler=f"SlowWorkers(num_slow={PAPER_SLOW}, slowdown={PAPER_SLOWDOWN})",
+         setup_s=paper["setup_s"], runs=runs)
+    return paper
+
+
+# ------------------------------- phase 8 ------------------------------------
+
+def _alive_workers(prefix: str) -> list[str]:
+    return [t.name for t in threading.enumerate()
+            if t.name.startswith(prefix) and t.is_alive()]
+
+
+def _in_flight(blocks: list) -> tuple[list, bool]:
+    """Copies of sparse CSR blocks whose values are NaN until the card,
+    after a spin of LIVE_SPIN_CYCLES on the current stream, copies the
+    real ones in; nothing waits for that.  A job started now gets inputs
+    the card has not finished, and a worker that reads them too early
+    decodes NaN.  Returns the copies and whether they were still
+    unfinished when this returned."""
+    copies = [torch.sparse_csr_tensor(b.crow_indices(), b.col_indices(),
+                                      torch.full_like(b.values(), float("nan")),
+                                      b.shape, check_invariants=False)
+              for b in blocks]
+    torch.cuda.synchronize()
+    torch.cuda._sleep(LIVE_SPIN_CYCLES)
+    for c, b in zip(copies, blocks):
+        c.values().copy_(b.values())
+    done = torch.cuda.Event()
+    done.record()
+    return copies, not done.query()
+
+
+def phase_live_job(paper: dict) -> None:
+    """``run_live_job`` on the card at the paper's operands, two workers
+    sleeping 2 s, q = 4: the job must decode before the sleepers finish;
+    then one ``JobMux(source="live")`` batch of three jobs on one pool.
+    Both are run once more on B blocks still being made when the job
+    starts: the workers' streams must wait for them."""
+    from repro_torch.core import schemes
+    from repro_torch.runtime import JobMux, MuxJob, run_live_job
+
+    A_blocks, B_blocks, truth = paper["A"], paper["B"], paper["truth"]
+    code = schemes.sparse_code(PAPER_MN, PAPER_MN, PAPER_WORKERS, seed=SEED)
+    sleepers = {0: LIVE_SLEEP_S, 1: LIVE_SLEEP_S}
+    rep = run_live_job(code, A_blocks, B_blocks, PAPER_MN,
+                       straggler_sleep=sleepers, num_chunks=4)
+    used = np.flatnonzero(rep.worker_progress).tolist()
+    rel = max(_rel_err(g, w) for g, w in zip(rep.blocks, truth))
+    check(rep.sim_compute_time < LIVE_SLEEP_S,
+          f"live_job: compute took {rep.sim_compute_time} s, the sleepers {LIVE_SLEEP_S} s")
+    check(rel <= DECODE_RTOL, f"live_job: rel err {rel} > {DECODE_RTOL}")
+    check(_alive_workers("live-worker-") == [], "live_job: worker threads outlived the job")
+    live = {"q": 4, "sleepers": sorted(sleepers), "sleep_s": LIVE_SLEEP_S,
+            "compute_time_s": rep.sim_compute_time,
+            "decode_wall_time_ms": rep.decode_wall_time * 1e3,
+            "workers_used": used, "chunks_used": rep.chunks_used,
+            "progress_of_sleepers": [rep.worker_progress[w] for w in sleepers],
+            "rel_err": rel, "rtol": DECODE_RTOL}
+    del rep
+
+    # the same job on B blocks still in flight when it starts
+    B_async, unfinished = _in_flight(B_blocks)
+    check(unfinished, "live_job: the in-flight B blocks were finished before the job")
+    rep = run_live_job(code, A_blocks, B_async, PAPER_MN, num_chunks=4)
+    rel = max(_rel_err(g, w) for g, w in zip(rep.blocks, truth))
+    check(rel <= DECODE_RTOL, f"live_job, inputs in flight: rel err {rel} > {DECODE_RTOL}")
+    live["inputs_in_flight"] = {"spin_cycles": LIVE_SPIN_CYCLES, "unfinished_at_start": unfinished,
+                                "compute_time_s": rep.sim_compute_time, "rel_err": rel}
+    del rep, B_async
+
+    jobs = [MuxJob(code=schemes.sparse_code(PAPER_MN, PAPER_MN, PAPER_WORKERS, seed=s),
+                   A_blocks=A_blocks, B_blocks=B_blocks, n=PAPER_MN, num_chunks=q,
+                   tag=f"seed {s}, q={q}") for s, q in ((0, 1), (1, 2), (2, 4))]
+    with JobMux(PAPER_WORKERS, source="live", straggler_sleep=sleepers) as mux:
+        t0 = time.perf_counter()
+        results = mux.run(jobs)
+        batch_s = time.perf_counter() - t0
+        # a second batch on the same pool, on B blocks still in flight
+        B_async, unfinished = _in_flight(B_blocks)
+        check(unfinished, "live JobMux: the in-flight B blocks were finished before the batch")
+        (late,) = mux.run([MuxJob(code=code, A_blocks=A_blocks, B_blocks=B_async,
+                                  n=PAPER_MN, num_chunks=4, tag="inputs in flight")])
+        del B_async
+    check(_alive_workers("mux-worker-") == [], "live JobMux: worker threads outlived the pool")
+    check(late.ok, f"live JobMux, inputs in flight: {late.error}")
+    late_rel = max(_rel_err(g, w) for g, w in zip(late.blocks, truth))
+    check(late_rel <= DECODE_RTOL, f"live JobMux, inputs in flight: rel err {late_rel}")
+    mux_rows = []
+    for res in results:
+        check(res.ok, f"live JobMux {res.tag}: {res.error}")
+        rel = max(_rel_err(g, w) for g, w in zip(res.blocks, truth))
+        check(rel <= DECODE_RTOL, f"live JobMux {res.tag}: rel err {rel}")
+        mux_rows.append({"tag": res.tag, "compute_time_s": res.report.sim_compute_time,
+                         "decode_wall_time_ms": res.report.decode_wall_time * 1e3,
+                         "workers_used": res.report.workers_used,
+                         "chunks_used": res.report.chunks_used, "rel_err": rel})
+    emit(phase="live_job", workers=PAPER_WORKERS, nnz_C=paper["nnz_C"], run_live_job=live,
+         jobmux={"jobs": mux_rows, "batch_s": batch_s,
+                 "inputs_in_flight": {"spin_cycles": LIVE_SPIN_CYCLES, "unfinished_at_start": unfinished,
+                                      "compute_time_s": late.report.sim_compute_time,
+                                      "rel_err": late_rel}},
+         rtol=DECODE_RTOL)
+
+
 def profile_apply(fn) -> dict:
     """Device time by kernel over one warm call of fn (torch.profiler), and
     the device's idle share of the call's wall time.  Where the trace holds
@@ -923,6 +1295,16 @@ def main() -> int:
     phase_accum_tiles()
     kernels, full = phase_main(built)
     kernels += phase_entry_full(full, built)
+    job_launches = phase_device_job(full)
+    for row in kernels:  # each path's counts, read on their own, and their sum
+        row["launches_by_path"] = {"main": row["launches"],
+                                   "device_job": job_launches.get(row["name"], 0)}
+        row["launches"] += row["launches_by_path"]["device_job"]
+    paper = phase_straggler_job(full, torch.device("cuda", 0))
+    del full
+    torch.cuda.empty_cache()
+    phase_live_job(paper)
+    print(info["nvidia_smi"], flush=True)  # again, beside the results
     emit(kernels=kernels)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": info["name"], "count": info["count"]}}),

@@ -16,6 +16,14 @@ The main path is plan -> bind -> apply::
 none; ``bind("cpu")`` runs the same path through the kernels' plain
 PyTorch versions.
 
+``run_device_job(A, B, plan, device=None, backend=...)`` times that apply
+(warm-up outside, CUDA events per repeat) and returns an
+``ExecutionReport``.  The paper's master/worker straggler runtime --
+``run_coded_job``, ``run_live_job`` and ``JobMux`` in
+``repro_torch.runtime``, decoding with the hybrid peeling/rooting decoder
+of ``repro_torch.core.decoder`` -- follows the same device rule: ``None``
+is the card, ``"cpu"`` must be asked for.
+
 Exports resolve lazily (PEP 562), so importing the package loads nothing
 until a name is touched.
 """
@@ -26,6 +34,7 @@ __all__ = [
     "from_plan",
     "get_scheme",
     "plan",
+    "run_device_job",
     "scheme_names",
 ]
 
@@ -34,6 +43,7 @@ _HOMES = {
     "CodedOp": "repro_torch.coded.op",
     "from_plan": "repro_torch.coded.op",
     "plan": "repro_torch.coded.op",
+    "run_device_job": "repro_torch.runtime.executor",
     "get_scheme": "repro_torch.coded.registry",
     "scheme_names": "repro_torch.coded.registry",
 }

@@ -25,6 +25,7 @@ import torch
 from repro_torch.coded import registry
 from repro_torch.coded.config import CodedMatmulConfig
 from repro_torch.core import coded_backends
+from repro_torch.core.blocks import resolve_device
 from repro_torch.core.coded_matmul import (
     CodedMatmulPlan,
     DeviceTilePack,
@@ -62,16 +63,7 @@ class CodedOp:
     def bind(self, device=None) -> "CodedOp":
         """Attach a torch device: ``None`` means the CUDA card, and raises
         when there is none; pass ``"cpu"`` to run on the CPU."""
-        dev = torch.device("cuda" if device is None else device)
-        if dev.type == "cuda":
-            if not torch.cuda.is_available():
-                raise RuntimeError(
-                    "no CUDA device: bind('cpu') to run on the CPU")
-            if dev.index is None:
-                dev = torch.device("cuda", torch.cuda.current_device())
-        elif dev.type != "cpu":
-            raise ValueError(f"device {dev} is neither a CUDA device nor the CPU")
-        return dataclasses.replace(self, device=dev)
+        return dataclasses.replace(self, device=resolve_device(device))
 
     def with_survivors(self, survivors) -> "CodedOp":
         """Rebind to a liveness mask (replaces any previous mask).

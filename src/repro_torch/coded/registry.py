@@ -67,6 +67,24 @@ class Scheme:
             raise ValueError(f"scheme {self.name!r} needs num_workers")
         return self.builder(m, n, num_workers, seed=seed, **kwargs)
 
+    def chunked(self, m: int, n: int, num_workers: int | None = None, *,
+                num_chunks: int, seed: int = 0, **kwargs):
+        """Chunk-granular host realization: ``instance(...).chunked(q)``.
+
+        Every registered scheme supports this -- chunking operates on the
+        sampled generator matrix, so it passes through the registry with no
+        per-scheme code.
+        """
+        return self.instance(m, n, num_workers, seed=seed,
+                             **kwargs).chunked(num_chunks)
+
+    def device_capable(self, m: int = 2, n: int = 2,
+                       num_workers: int | None = None, **kwargs) -> bool:
+        """Whether this design maps onto the device path (one generator row
+        per worker)."""
+        inst = self.instance(m, n, num_workers or 4 * m * n, **kwargs)
+        return all(len(rows) == 1 for rows in inst.worker_rows)
+
     def plan(self, m: int, n: int, num_workers: int | None = None, *,
              max_degree: int | None = None, seed: int = 0,
              max_resample: int = 50, **kwargs):

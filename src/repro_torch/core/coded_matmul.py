@@ -3,7 +3,8 @@
 The public entry point is ``repro_torch.coded`` (scheme registry +
 ``CodedMatmulConfig`` + ``CodedOp`` plan->bind->apply); this module holds
 the machinery it runs -- ``CodedMatmulPlan``/``make_plan``, tile packing,
-the backend local-product factories, and ``stage_coded_matmul``.
+the backend local-product factories, and ``stage_coded_matmul`` -- and the
+deprecated flat-argument ``coded_matmul`` over the same staging.
 
 The paper's master/worker protocol, with every worker on one card:
 
@@ -36,6 +37,7 @@ Local-compute backends:
 from __future__ import annotations
 
 import dataclasses
+import warnings
 
 import numpy as np
 import scipy.sparse as sp
@@ -580,3 +582,48 @@ def stage_coded_matmul(
     blocks = torch.stack(contribs).sum(dim=0)              # (mn, br, bt)
     C = blocks.reshape(m, n, br, bt).permute(0, 2, 1, 3).reshape(m * br, n * bt)
     return C.to(out_dtype)
+
+
+def coded_matmul(A, B, plan: CodedMatmulPlan, device=None,
+                 survivors: np.ndarray | None = None,
+                 out_dtype: torch.dtype = torch.float32,
+                 backend: str = "dense_scan", a_sparse: BlockELL | None = None,
+                 block_size: int = 8, pack: WorkerTilePack | None = None,
+                 out_sharded: bool = False) -> torch.Tensor:
+    """DEPRECATED flat-kwarg entry point; use ``repro_torch.coded`` instead.
+
+    C = A^T B computed with the (P,S)-sparse code on ``device`` (None = the
+    CUDA card, raising where there is none; or ``"cpu"``).  A: (s, r),
+    B: (s, t); returns C (r, t).  r % m == 0 and t % n == 0 are required.
+
+    The replacement is the plan->bind->apply object API::
+
+        from repro_torch.coded import CodedMatmulConfig, from_plan
+        op = from_plan(CodedMatmulConfig(backend=...), plan).bind(device)
+        C = op(A, B)                     # bit-identical to this function
+
+    This function makes that call (after ``with_survivors(survivors)``), so
+    the two are bit-identical.
+    """
+    warnings.warn(
+        "coded_matmul(...) is deprecated: use repro_torch.coded "
+        "(CodedMatmulConfig + plan/from_plan -> bind -> apply)",
+        DeprecationWarning, stacklevel=2)
+    from repro_torch.coded import CodedMatmulConfig, from_plan
+
+    entry = coded_backends.get_backend(backend)
+    if not (entry.needs_pack or entry.virtual):
+        a_sparse = pack = None  # ignored here, as the JAX package ignores them
+    op = from_plan(CodedMatmulConfig(backend=backend, block_size=block_size,
+                                     out_sharded=out_sharded,
+                                     out_dtype=out_dtype), plan).bind(device)
+    return op.with_survivors(survivors).apply(A, B, a_sparse=a_sparse,
+                                              pack=pack)
+
+
+def uncoded_matmul_reference(A, B) -> torch.Tensor:
+    """The plain product A^T B in f32, on the operands' device, for tests
+    and overhead comparisons."""
+    A = torch.as_tensor(A).to(torch.float32)
+    B = torch.as_tensor(B).to(torch.float32)
+    return A.T @ B

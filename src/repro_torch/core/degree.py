@@ -109,3 +109,22 @@ def get_distribution(name: str, d: int, **kw) -> np.ndarray:
         raise ValueError(f"unknown degree distribution {name!r}; "
                          f"options: {sorted(DISTRIBUTIONS)}") from e
     return fn(d, **kw)
+
+
+def average_degree(p: np.ndarray) -> float:
+    k = np.arange(1, len(p) + 1, dtype=np.float64)
+    return float(np.dot(k, p))
+
+
+def degree_generator_poly(p: np.ndarray, x: np.ndarray) -> np.ndarray:
+    """Omega(x) = sum_k p_k x^k (paper eq. (9))."""
+    x = np.asarray(x, dtype=np.float64)
+    ks = np.arange(1, len(p) + 1)
+    return np.sum(p[None, :] * x[..., None] ** ks[None, :], axis=-1)
+
+
+def degree_generator_dpoly(p: np.ndarray, x: np.ndarray) -> np.ndarray:
+    """Omega'(x) = sum_k k p_k x^{k-1}."""
+    x = np.asarray(x, dtype=np.float64)
+    ks = np.arange(1, len(p) + 1)
+    return np.sum(ks[None, :] * p[None, :] * x[..., None] ** (ks[None, :] - 1), axis=-1)

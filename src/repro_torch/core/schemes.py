@@ -9,8 +9,9 @@ inputs densify m- and n-fold, so the single product costs ~m*n uncoded
 block products (paper Fig. 1, Table I).
 
 A copy of the JAX package's builders (same draws from the same seed, so
-the registry builds the same plans).  ``CodeInstance`` keeps what the
-device plan reads; the host peeling decode is not part of this port yet.
+the registry builds the same plans) and of its host decode policy
+(``CodeInstance.decode``/``can_decode``, the chunk-granular ``ChunkedCode``),
+decoding torch blocks on any device.
 """
 
 from __future__ import annotations
@@ -21,7 +22,18 @@ import numpy as np
 import scipy.sparse as sp
 
 from repro_torch.core import degree as degree_lib
-from repro_torch.core.encoder import SparseCodeSpec, generate_coefficient_matrix
+from repro_torch.core.decoder import (
+    DecodingError,
+    apply_schedule,
+    gaussian_decode,
+    hybrid_decode,
+    peel_schedule,
+)
+from repro_torch.core.encoder import (
+    SparseCodeSpec,
+    chunk_expand,
+    generate_coefficient_matrix,
+)
 
 
 @dataclasses.dataclass(frozen=True)
@@ -89,6 +101,127 @@ class CodeInstance:
     @property
     def mn(self) -> int:
         return self.M.shape[1]
+
+    def rows_of(self, workers: list[int]) -> list[int]:
+        return [r for w in workers for r in self.worker_rows[w]]
+
+    def can_decode(self, workers: list[int]) -> bool:
+        return _can_decode_rows(self.decode_kind, self.mn,
+                                self.M[self.rows_of(workers)])
+
+    def decode(self, workers: list[int], results_by_row: dict[int, object]):
+        rows = self.rows_of(workers)
+        sub = self.M[rows]
+        data = [results_by_row[r] for r in rows]
+        return _decode_rows(self.decode_kind, sub, data)
+
+    def chunked(self, num_chunks: int) -> "ChunkedCode":
+        """Chunk-granular view of this code (partial-straggler protocol).
+
+        Every worker's task splits into ``num_chunks`` ordered sub-tasks;
+        each sub-task is one row of the chunk-expanded coefficient matrix,
+        so the master can decode from completed *chunks* instead of whole
+        tasks.  ``num_chunks == 1`` is the atomic protocol, bit-for-bit.
+        """
+        return ChunkedCode(base=self, num_chunks=num_chunks,
+                           M=chunk_expand(self.M, num_chunks))
+
+
+def _decode_rows(decode_kind: str, sub: sp.csr_matrix, data: list):
+    """Decode collected rows with a CodeInstance decode policy."""
+    if decode_kind == "hybrid":
+        blocks, _ = hybrid_decode(sub, data)
+        return blocks
+    if decode_kind == "peel":
+        sched, _ = peel_schedule(sub, check_rank=False, root_pick="fail")
+        return apply_schedule(sched, data)
+    return gaussian_decode(sub, data)
+
+
+def _can_decode_rows(decode_kind: str, mn: int, sub: sp.csr_matrix) -> bool:
+    """Decodability of collected rows under a CodeInstance decode policy --
+    the one place the rule lives, shared by the atomic and chunked views."""
+    if sub.shape[0] < mn:
+        return False
+    if decode_kind == "peel":
+        try:
+            peel_schedule(sub, check_rank=False, root_pick="fail")
+            return True
+        except (DecodingError, ValueError):
+            return False
+    return np.linalg.matrix_rank(sub.toarray()) == mn
+
+
+@dataclasses.dataclass
+class ChunkedCode:
+    """Chunk-granular view of a ``CodeInstance``.
+
+    Identifiers are ``(worker, chunk)`` pairs: worker w's chunk c stands for
+    the c-th ordered sub-task of EACH of w's generator rows.  The expanded
+    matrix M has row ``r * num_chunks + c`` = chunk c of base row r (see
+    ``encoder.chunk_expand``); ``rows_of``/``can_decode``/``decode`` mirror
+    the ``CodeInstance`` API but consume (worker, chunk) ids, and
+    ``chunk_work`` exposes the per-chunk share of each worker's cost factor
+    so straggler models can place partial progress on the timeline.
+    """
+
+    base: CodeInstance
+    num_chunks: int
+    M: sp.csr_matrix          # (R * num_chunks, mn) chunk-expanded generator
+
+    @property
+    def name(self) -> str:
+        q = self.num_chunks
+        return self.base.name if q == 1 else f"{self.base.name}/q{q}"
+
+    @property
+    def num_workers(self) -> int:
+        return self.base.num_workers
+
+    @property
+    def mn(self) -> int:
+        return self.base.mn
+
+    def expanded_rows(self, worker: int, chunk: int) -> list[int]:
+        """Nonempty expanded-M rows delivered by (worker, chunk)."""
+        q = self.num_chunks
+        rows = [r * q + chunk for r in self.base.worker_rows[worker]]
+        return [r for r in rows if self.M.indptr[r + 1] > self.M.indptr[r]]
+
+    def rows_of(self, pairs) -> list[int]:
+        """Expanded-M rows of the given (worker, chunk) arrivals, in order."""
+        return [r for w, c in pairs for r in self.expanded_rows(w, c)]
+
+    def chunk_work(self) -> np.ndarray:
+        """(N, num_chunks) nominal work per chunk, in block-product units.
+
+        Worker w's cost factor is split across its chunks proportionally to
+        the slots each chunk carries (summed over the worker's rows), so the
+        per-worker total equals the atomic cost exactly.
+        """
+        q = self.num_chunks
+        N = self.num_workers
+        work = np.zeros((N, q))
+        nnz_exp = np.diff(self.M.indptr)              # per expanded row
+        for w in range(N):
+            slots = np.zeros(q)
+            for r in self.base.worker_rows[w]:
+                slots += nnz_exp[r * q:(r + 1) * q]
+            total = slots.sum()
+            if total > 0:
+                work[w] = self.base.cost_factor[w] * slots / total
+        return work
+
+    def can_decode(self, pairs) -> bool:
+        return _can_decode_rows(self.base.decode_kind, self.mn,
+                                self.M[self.rows_of(pairs)])
+
+    def decode(self, pairs, results_by_row: dict[int, object]):
+        """Decode from chunk results (keyed by expanded-M row id)."""
+        rows = self.rows_of(pairs)
+        sub = self.M[rows]
+        data = [results_by_row[r] for r in rows]
+        return _decode_rows(self.base.decode_kind, sub, data)
 
 
 def uncoded(m: int, n: int) -> CodeInstance:

@@ -4,7 +4,10 @@
   in a process where ``jax``, ``ml_dtypes`` and ``repro`` cannot be
   imported at all;
 * no port file names them;
-* ``bind()`` with no CUDA device raises instead of running on the CPU;
+* ``bind()`` with no CUDA device raises instead of running on the CPU, and
+  so do the runtime's entry points (``run_coded_job``, ``run_live_job``,
+  ``JobMux``, ``run_device_job``) and ``coded_matmul`` unless given
+  ``device="cpu"``;
 * a kernel wrapper given CPU tensors takes the plain version and never
   reaches the CUDA lane, while the CUDA wrapper refuses CPU tensors;
 * ``chip_smoke.py`` fails, printing no result, where it cannot run.
@@ -81,6 +84,56 @@ def test_bind_without_cuda_raises_instead_of_using_the_cpu():
     assert op.bind("cpu").device == torch.device("cpu")
     with pytest.raises(ValueError, match="unbound"):
         op.apply(np.zeros((16, 16), np.float32), np.zeros((16, 24), np.float32))
+
+
+def _entry_point_calls():
+    """Each entry point of the runtime, as a call taking ``device``."""
+    import warnings
+
+    from repro_torch.core import coded_matmul, schemes
+    from repro_torch.runtime import (JobMux, MuxJob, SlowWorkers, run_coded_job,
+                                     run_device_job, run_live_job)
+
+    rng = np.random.default_rng(0)
+    blocks = [rng.standard_normal((3, 4)) for _ in range(4)]
+    Ab = [rng.standard_normal((6, 2)) for _ in range(2)]
+    Bb = [rng.standard_normal((6, 3)) for _ in range(2)]
+    code = schemes.sparse_code(2, 2, 8, seed=1)
+    A = rng.standard_normal((16, 16)).astype(np.float32)
+    B = rng.standard_normal((16, 24)).astype(np.float32)
+    p = coded_matmul.make_plan(2, 2, 8)
+
+    def mux(source, device):
+        with JobMux(8, source=source, device=device) as m:
+            return m.run([MuxJob(code=code, A_blocks=Ab, B_blocks=Bb, n=2)],
+                         raise_on_error=True)
+
+    def legacy(device):
+        with warnings.catch_warnings():
+            warnings.simplefilter("ignore", DeprecationWarning)
+            return coded_matmul.coded_matmul(A, B, p, device=device)
+
+    return {
+        "run_coded_job": lambda d: run_coded_job(code, blocks, SlowWorkers(1, 2.0),
+                                                 device=d),
+        "run_live_job": lambda d: run_live_job(code, Ab, Bb, 2, device=d),
+        "JobMux sim": lambda d: mux("sim", d),
+        "JobMux live": lambda d: mux("live", d),
+        "run_device_job": lambda d: run_device_job(A, B, p, device=d, repeats=1),
+        "coded_matmul": legacy,
+    }
+
+
+@pytest.mark.parametrize("name", ["run_coded_job", "run_live_job", "JobMux sim",
+                                  "JobMux live", "run_device_job", "coded_matmul"])
+def test_entry_points_without_cuda_raise_unless_asked_for_the_cpu(name):
+    if torch.cuda.is_available():
+        pytest.skip("a CUDA device is present: the card is meant to be used")
+    call = _entry_point_calls()[name]
+    for device in (None, "cuda"):
+        with pytest.raises(RuntimeError, match="no CUDA device"):
+            call(device)
+    assert call("cpu") is not None
 
 
 def _operands(seed=0, CB=2, L=3, bs=8, s=32, n=2, bt=24, mn=4):
