@@ -36,6 +36,15 @@ slow) at q = 1 and 4, timing the hybrid decoder beside ``gaussian_decode``
 on the same collected results, plus one dense run on the main path's
 operands.  ``live_job`` runs ``run_live_job`` there with two workers
 sleeping 2 s, and one ``JobMux(source="live")`` batch of three jobs.
+``proc_job`` runs ``run_proc_job`` there: 28 worker processes, each with
+a CUDA context of its own, in the live job's case, without a fault, and
+with each fault class (kill, pause, slow, drop_result: each checked to
+have fired and the job to decode, beside ``FaultRealization``'s
+prediction), a respawn and an unrecoverable kill; ``proc_mux`` one
+``JobMux`` batch over a ``MuxProcPool`` with worker 1 killed; ``schemes``
+the port's scheme checks over the registry and on the main path's
+full-size pack.  Worker processes re-import this script: nothing at its
+module level touches the card.
 Each phase prints one JSON line; the line before the last lists the
 kernels with their launches, times and bounds, and the last line is
 ``{"ok": true, "device": {...}}``.  Any failed check raises, so the exit
@@ -89,6 +98,13 @@ E2E_RTOL = 1e-3
 PAPER_DIM, PAPER_NNZ, PAPER_MN, PAPER_WORKERS = 150_000, 600_000, 4, 28
 PAPER_SLOW, PAPER_SLOWDOWN, LIVE_SLEEP_S = 2, 10.0, 2.0
 LIVE_SPIN_CYCLES = 10**9  # the card's spin before in-flight inputs are made (~0.5 s)
+# the process runtime (phases proc_job, proc_mux) on the same operands:
+# each worker's sleep over its q = 4 chunks -- a faulted worker's first
+# chunk comes 0.05 s after go, the others' every 0.5 s, so no decodable
+# prefix comes before the fault's trigger -- and a heartbeat deadline far
+# past the job (the deadline is not what these cases exercise)
+PROC_Q, PROC_SLEEP_S, PROC_FAULTED_SLEEP_S, PROC_DEADLINE_S = 4, 2.0, 0.2, 10.0
+PROC_TIMEOUT_S = 300.0  # start-up (28 processes, each its own CUDA context) included
 # decoded blocks against the true block products, relative to max|block|:
 # the decode runs in f32 with code weights up to (mn)^2 = 256 and rooting
 # coefficients from a float64 solve, so it rounds at ~eps * cond; the
@@ -1249,6 +1265,272 @@ def phase_live_job(paper: dict) -> None:
          rtol=DECODE_RTOL)
 
 
+# ------------------------------- phase 9 ------------------------------------
+
+def _counted(fn):
+    """fn() run with every kernel's launch count set to 0 just before it,
+    and the counts read just after."""
+    from repro_torch.kernels import coded_accum, spmm_block
+
+    spmm_block.reset_launch_counts()
+    coded_accum.reset_launch_counts()
+    out = fn()
+    return out, {**spmm_block.LAUNCHES, **coded_accum.LAUNCHES}
+
+
+@contextlib.contextmanager
+def _card_memory_watch(out: dict):
+    """The most device memory the block took from the card as a whole
+    (every process's: ``torch.cuda.mem_get_info`` polled every 20 ms
+    from the master) into ``out["peak_bytes"]``."""
+    free0 = torch.cuda.mem_get_info()[0]
+    seen, stop = [free0], threading.Event()
+
+    def poll():
+        while not stop.wait(0.02):
+            seen.append(torch.cuda.mem_get_info()[0])
+
+    watcher = threading.Thread(target=poll, daemon=True)
+    watcher.start()
+    try:
+        yield
+    finally:
+        stop.set()
+        watcher.join()
+        out["peak_bytes"] = free0 - min(seen)
+
+
+def _startup(hellos: list, go_s: float | None = None) -> dict:
+    """A pool's start-up over its worker processes: the median and the
+    largest of each part its workers reported (spawn to hello, and its
+    split: to the worker's entry point, to open the device, to put its
+    operands there)."""
+    out = {"processes": len(hellos), **({"go_s": go_s} if go_s is not None else {})}
+    for key in ("hello_s", "entry_s", "device_s", "operands_s"):
+        secs = sorted(h[key] for h in hellos if key in h)
+        if secs:
+            out[key] = {"median": statistics.median(secs), "max": secs[-1]}
+    return out
+
+
+def phase_proc_job(paper: dict) -> None:
+    """``run_proc_job`` on the card at the paper's operands (q = 4): worker
+    processes, each with a CUDA context of its own, computing their coded
+    CSR products there; a line a case, then a summary line.  First the live job's case (workers 0 and 1
+    sleeping 2 s, the others not) beside ``live_job``'s thread compute, with
+    the card memory the 28 processes take; then a no-fault run that
+    calibrates the simulator's ``unit_block_time``; then each fault class
+    -- kill, pause, slow, drop_result -- checked to have fired, decoded
+    within DECODE_RTOL, beside ``FaultRealization``'s predicted recovery;
+    a respawn after a kill at spawn on an ``uncoded`` job, which needs the
+    fresh process; and an unrecoverable kill, which must raise naming worker 1."""
+    from repro_torch.core import schemes
+    from repro_torch.core.decoder import DecodingError
+    from repro_torch.runtime import NoStragglers, run_coded_job, run_proc_job
+    from repro_torch.runtime.chaos import (FaultPlan, FaultRealization, drop_result,
+                                           kill, pause, slow)
+
+    A_blocks, B_blocks, truth = paper["A"], paper["B"], paper["truth"]
+    code = schemes.sparse_code(PAPER_MN, PAPER_MN, PAPER_WORKERS, seed=SEED)
+    uncoded = schemes.uncoded(PAPER_MN, PAPER_MN)
+
+    def run(c, plan=None, faulted=None, sleep=None, **kw):
+        if sleep is None:
+            sleep = {w: PROC_FAULTED_SLEEP_S if w == faulted else PROC_SLEEP_S
+                     for w in range(c.num_workers)}
+        t0 = time.perf_counter()
+        rep = run_proc_job(c, A_blocks, B_blocks, PAPER_MN, straggler_sleep=sleep,
+                           num_chunks=PROC_Q, plan=plan, timeout=PROC_TIMEOUT_S,
+                           heartbeat_deadline=PROC_DEADLINE_S, **kw)
+        return rep, time.perf_counter() - t0
+
+    def predicted(plan, unit):
+        return run_coded_job(code, truth, FaultRealization(plan=FaultPlan.coerce(plan)),
+                             rng=np.random.default_rng(SEED), unit_block_time=unit,
+                             num_chunks=PROC_Q).sim_compute_time
+
+    def row(name, rep, wall_s, plan=None):
+        rel = max(_rel_err(g, w) for g, w in zip(rep.blocks, truth))
+        check(rel <= DECODE_RTOL, f"proc_job {name}: rel err {rel} > {DECODE_RTOL}")
+        check(sorted({str(b.layout) for b in rep.blocks}) == ["torch.sparse_csr"],
+              f"proc_job {name}: a decoded block is not CSR")
+        startup = rep.decode_stats["startup"]
+        return {"case": name, "plan": [repr(f) for f in (plan or [])],
+                "compute_s": rep.sim_compute_time,
+                "decode_ms": rep.decode_wall_time * 1e3,
+                "workers_used": rep.workers_used, "chunks_used": rep.chunks_used,
+                "ledger": [[e["kind"], e["worker"]] + ([e["exitcode"]] if "exitcode" in e else [])
+                           for e in rep.fault_ledger],
+                "faults": {k: rep.decode_stats["faults"][k] for k in
+                           ("equations_lost", "equations_recovered")},
+                "rel_err": rel, "rtol": DECODE_RTOL,
+                "startup": _startup(startup["hello"], startup["go_s"]),
+                "wall_s": wall_s}
+
+    # a chunk's products alone on the card (the master's own context), the
+    # yardstick of the processes' compute: workers 0-3's chunks, each timed
+    # from a synchronisation to a synchronisation
+    from repro_torch.core.encoder import encode_blocks, make_tasks
+
+    tasks = {t.worker: t for t in make_tasks(code.M)}
+    alone = []
+    for w in range(4):
+        for r in code.worker_rows[w]:
+            for task in tasks[r].chunks(PROC_Q):
+                torch.cuda.synchronize()
+                t0 = time.perf_counter()
+                encode_blocks(task, A_blocks, B_blocks, PAPER_MN)
+                torch.cuda.synchronize()
+                alone.append(time.perf_counter() - t0)
+    chunk_ms_alone = statistics.median(alone) * 1e3
+
+    rows = []
+    # the live job's case: the same sleepers, beside the threads' compute
+    memory = {}
+    with _card_memory_watch(memory):
+        rep, wall = run(code, sleep={0: LIVE_SLEEP_S, 1: LIVE_SLEEP_S})
+    rows.append(row("as live_job (workers 0, 1 sleep 2 s)", rep, wall))
+    rows[-1].update(card_bytes_taken=memory["peak_bytes"],
+                    card_bytes_per_process=memory["peak_bytes"] / PAPER_WORKERS,
+                    progress_of_sleepers=rep.worker_progress[:2],
+                    chunk_ms_alone=chunk_ms_alone,
+                    chunks_used_times_chunk_alone_s=rep.chunks_used * chunk_ms_alone / 1e3)
+    emit(phase="proc_job", **rows[-1])
+
+    # no fault: calibrates the simulator's clock (as the JAX package's chaos
+    # benchmark does)
+    rep, wall = run(code)
+    rows.append(row("no fault", rep, wall))
+    sim_base = run_coded_job(code, truth, NoStragglers(), rng=np.random.default_rng(SEED),
+                             unit_block_time=1.0, num_chunks=PROC_Q).sim_compute_time
+    unit = rep.sim_compute_time / sim_base
+    rows[-1].update(predicted_s=predicted([], unit), unit_block_time=unit)
+    emit(phase="proc_job", **rows[-1])
+    check(rep.fault_ledger == [], f"proc_job no fault: ledger {rep.fault_ledger}")
+
+    for name, fault in (("kill", kill(1, after_chunk=0)), ("pause", pause(2, after_chunk=0)),
+                        ("slow10x", slow(3, factor=10.0)),
+                        ("drop_result", drop_result(1, chunk=1))):
+        rep, wall = run(code, [fault], faulted=fault.worker)
+        rows.append(row(name, rep, wall, [fault]))
+        pred = predicted([fault], unit)
+        rows[-1].update(predicted_s=pred, measured_over_predicted=rep.sim_compute_time / pred)
+        emit(phase="proc_job", **rows[-1])
+        check(any(e["kind"] == fault.kind and e["worker"] == fault.worker
+                  for e in rep.fault_ledger),
+              f"proc_job {name}: the fault did not fire: {rep.fault_ledger}")
+
+    # respawn after a kill: uncoded needs the fresh process (its one
+    # equation a worker, at q = 4, lies in a single chunk)
+    fault = kill(1)
+    rep, wall = run(uncoded, [fault], respawn=True)
+    rows.append(row("uncoded, kill + respawn", rep, wall, [fault]))
+    again = [h for h in rep.decode_stats["startup"]["hello"] if h["worker"] == 1]
+    rows[-1]["respawn_startup"] = again[1:]
+    emit(phase="proc_job", **rows[-1])
+    kinds = [e["kind"] for e in rep.fault_ledger]
+    check(kinds == ["kill", "crash_detected", "respawn"], f"proc_job respawn: ledger {kinds}")
+    check(rep.fault_ledger[1]["exitcode"] == -9, f"proc_job respawn: {rep.fault_ledger[1]}")
+    check(len(again) == 2, f"proc_job respawn: worker 1 said hello {len(again)} times")
+
+    # unrecoverable: uncoded without worker 1
+    t0 = time.perf_counter()
+    err = None
+    try:
+        run(uncoded, [kill(1)])
+    except DecodingError as exc:
+        err = str(exc)
+    rows.append({"case": "uncoded, kill(1) at spawn", "plan": [repr(kill(1))],
+                 "error": err, "wall_s": time.perf_counter() - t0})
+    emit(phase="proc_job", **rows[-1])
+    check(err is not None and "[1]" in err, f"proc_job unrecoverable: raised {err!r}")
+    emit(phase="proc_job", workers=PAPER_WORKERS, q=PROC_Q, nnz_C=paper["nnz_C"],
+         sleep_s=PROC_SLEEP_S, faulted_sleep_s=PROC_FAULTED_SLEEP_S,
+         heartbeat_deadline_s=PROC_DEADLINE_S,
+         cases=[{k: r[k] for k in ("case", "compute_s", "decode_ms", "rel_err", "wall_s")
+                 if k in r} for r in rows])
+
+
+# ------------------------------- phase 10 -----------------------------------
+
+def phase_proc_mux(paper: dict) -> None:
+    """``JobMux`` over a ``MuxProcPool`` of 28 worker processes on the card,
+    worker 1 killed when its first chunk arrives: one batch of two coded
+    jobs, which decode within DECODE_RTOL, and one uncoded job that needs
+    worker 1, which fails alone."""
+    from repro_torch.core import schemes
+    from repro_torch.runtime import JobMux, MuxJob, MuxProcPool
+    from repro_torch.runtime.chaos import kill
+
+    A_blocks, B_blocks, truth = paper["A"], paper["B"], paper["truth"]
+    jobs = [MuxJob(code=code, A_blocks=A_blocks, B_blocks=B_blocks, n=PAPER_MN,
+                   num_chunks=q, tag=tag) for code, q, tag in (
+        (schemes.sparse_code(PAPER_MN, PAPER_MN, PAPER_WORKERS, seed=0), 2, "coded seed 0, q=2"),
+        (schemes.sparse_code(PAPER_MN, PAPER_MN, PAPER_WORKERS, seed=1), 1, "coded seed 1, q=1"),
+        (schemes.uncoded(PAPER_MN, PAPER_MN), 2, "uncoded, q=2"))]
+    pool = MuxProcPool(PAPER_WORKERS, plan=[kill(1, after_chunk=0)],
+                       straggler_sleep={w: PROC_SLEEP_S / 2 for w in range(PAPER_WORKERS)},
+                       timeout=PROC_TIMEOUT_S)
+    with JobMux(PAPER_WORKERS, source=pool) as mux:
+        procs = list(pool._procs.values())
+        t0 = time.perf_counter()
+        results = mux.run(jobs)
+        batch_s = time.perf_counter() - t0
+    check(all(not p.is_alive() for p in procs), "proc_mux: a worker process outlived the pool")
+    rows = []
+    for res in results[:2]:
+        check(res.ok, f"proc_mux {res.tag}: {res.error}")
+        rel = max(_rel_err(g, w) for g, w in zip(res.blocks, truth))
+        check(rel <= DECODE_RTOL, f"proc_mux {res.tag}: rel err {rel}")
+        check(res.report.worker_progress[1] <= 1,
+              f"proc_mux {res.tag}: worker 1 delivered after its kill")
+        rows.append({"tag": res.tag, "compute_s": res.report.sim_compute_time,
+                     "decode_ms": res.report.decode_wall_time * 1e3,
+                     "workers_used": res.report.workers_used,
+                     "chunks_used": res.report.chunks_used, "rel_err": rel})
+    bad = results[2]
+    check(not bad.ok and "worker process(es) [1] crashed" in bad.error,
+          f"proc_mux {bad.tag}: ok={bad.ok}, error {bad.error!r}")
+    rows.append({"tag": bad.tag, "error": bad.error})
+    ledger = [[e["kind"], e["worker"]] + ([e["exitcode"]] if "exitcode" in e else [])
+              for e in pool.ledger.entries]
+    check(ledger == [["kill", 1], ["crash_detected", 1, -9]], f"proc_mux: ledger {ledger}")
+    emit(phase="proc_mux", workers=PAPER_WORKERS, sleep_s=PROC_SLEEP_S / 2, jobs=rows,
+         batch_s=batch_s, ledger=ledger,
+         startup=_startup(list(pool.startup.values())), rtol=DECODE_RTOL)
+
+
+# ------------------------------- phase 6b -----------------------------------
+
+def phase_schemes(full: dict) -> None:
+    """The port's scheme checks over every registered scheme at their
+    default sweep (no ``ERROR`` finding), and the pack contracts on the main
+    path's full-size operand and pack."""
+    from repro_torch.analysis import ERROR, WARNING
+    from repro_torch.analysis.schemes import run_scheme_checks, validate_pack
+    from repro_torch.coded.registry import scheme_names
+    from repro_torch.core.coded_matmul import pack_worker_tiles
+
+    t0 = time.perf_counter()
+    findings, count = run_scheme_checks()
+    sweep_s = time.perf_counter() - t0
+    errors = [f.render() for f in findings if f.severity == ERROR]
+    check(count == len(scheme_names()) and not errors,
+          f"schemes: {count} checked, errors {errors}")
+    t0 = time.perf_counter()
+    A_np = full["A"].cpu().numpy()
+    pack = pack_worker_tiles(full["ell"], full["plan"])
+    pack_findings = [f.render() for f in validate_pack(full["plan"], A_np, full["ell"], pack)]
+    check(pack_findings == [], f"schemes: the main path's pack: {pack_findings}")
+    emit(phase="schemes", schemes_checked=count, errors=len(errors),
+         warnings=[f.render() for f in findings if f.severity == WARNING],
+         sweep_s=sweep_s,
+         main_path_pack={"workers": WORKERS, "s": S, "r": R, "density": DENSITY,
+                         "vals_shape": list(pack.vals.shape),
+                         "live_tiles": int(pack.live_tiles.sum()),
+                         "findings": pack_findings, "seconds": time.perf_counter() - t0})
+
+
 def profile_apply(fn) -> dict:
     """Device time by kernel over one warm call of fn (torch.profiler), and
     the device's idle share of the call's wall time.  Where the trace holds
@@ -1295,15 +1577,20 @@ def main() -> int:
     phase_accum_tiles()
     kernels, full = phase_main(built)
     kernels += phase_entry_full(full, built)
-    job_launches = phase_device_job(full)
-    for row in kernels:  # each path's counts, read on their own, and their sum
-        row["launches_by_path"] = {"main": row["launches"],
-                                   "device_job": job_launches.get(row["name"], 0)}
-        row["launches"] += row["launches_by_path"]["device_job"]
+    by_path = {"device_job": phase_device_job(full)}
+    _, by_path["schemes"] = _counted(lambda: phase_schemes(full))
     paper = phase_straggler_job(full, torch.device("cuda", 0))
     del full
     torch.cuda.empty_cache()
     phase_live_job(paper)
+    _, by_path["proc_job"] = _counted(lambda: phase_proc_job(paper))
+    _, by_path["proc_mux"] = _counted(lambda: phase_proc_mux(paper))
+    for path in ("schemes", "proc_job", "proc_mux"):  # they run none of the kernels
+        check(not any(by_path[path].values()), f"{path} launched {by_path[path]}")
+    for row in kernels:  # each path's counts, read on their own, and their sum
+        row["launches_by_path"] = {"main": row["launches"], **{
+            path: counts.get(row["name"], 0) for path, counts in by_path.items()}}
+        row["launches"] = sum(row["launches_by_path"].values())
     print(info["nvidia_smi"], flush=True)  # again, beside the results
     emit(kernels=kernels)
     print(json.dumps({"ok": True, "device": {

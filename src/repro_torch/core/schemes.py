@@ -65,6 +65,11 @@ class SchemeInvariants:
                 f"optimal_workers must be mn|m|all, got "
                 f"{self.optimal_workers!r}")
 
+    def optimal(self, m: int, n: int, num_workers: int) -> int:
+        if self.optimal_workers == "all":
+            return num_workers
+        return m if self.optimal_workers == "m" else m * n
+
 
 #: per-scheme profiles, keyed by registry name (the registry wires these
 #: onto the ``Scheme`` entries at registration)

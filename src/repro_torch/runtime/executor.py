@@ -36,12 +36,16 @@ Entry points:
   naming the silent workers; a worker thread that exits early (exception,
   stop flag) posts a terminal sentinel.
 
-* ``JobMux`` -- many concurrent jobs over one worker pool (``"sim"`` or
-  ``"live"``), each decoded at its own first decodable prefix.
+* ``JobMux`` -- many concurrent jobs over one worker pool (``"sim"``,
+  ``"live"`` or a source object such as ``runtime.procpool.MuxProcPool``),
+  each decoded at its own first decodable prefix.
 
 * ``run_device_job`` -- the device path: a thin timing wrapper over
   ``repro_torch.coded.CodedOp`` (workers one after the other on one card,
   the decode fused into the SpMM kernel's epilogue).
+
+The process runtime (``runtime.procpool``: ``run_proc_job``, ``ProcPool``,
+``MuxProcPool``) feeds the same loop from worker processes.
 """
 
 from __future__ import annotations
@@ -652,12 +656,13 @@ class JobMux:
 
     The pool is persistent: construct once (picking the event source --
     ``"sim"`` for the rate-based discrete-event simulation, ``"live"`` for
-    real threads with injected sleeps), then call :meth:`run` per batch of
-    jobs.  Every batch shares the workers fairly (chunk-major round-robin
-    across jobs), tracks decodability per job with its own
-    ``IncrementalRankTracker``, stops each job at its first decodable
-    chunk prefix, and cancels that job's remaining chunks.  One
-    undecodable job fails alone (``MuxResult.error``); the rest of the
+    real threads with injected sleeps; subprocess pools plug in via
+    ``runtime.procpool.MuxProcPool``, on the ``JobMux``'s device), then
+    call :meth:`run` per batch of jobs.  Every batch shares the workers
+    fairly (chunk-major round-robin across jobs), tracks decodability per
+    job with its own ``IncrementalRankTracker``, stops each job at its
+    first decodable chunk prefix, and cancels that job's remaining chunks.
+    One undecodable job fails alone (``MuxResult.error``); the rest of the
     batch decodes.
 
     ``device`` (None = the CUDA card, raising where there is none; or
@@ -681,9 +686,19 @@ class JobMux:
             self._source = _MuxLiveSource(
                 num_workers, self.device, straggler_sleep=straggler_sleep,
                 dead_workers=dead_workers, timeout=timeout)
+        elif hasattr(source, "submit") and hasattr(source, "job_done"):
+            # a source object (e.g. runtime.procpool.MuxProcPool): real OS
+            # subprocess workers behind the same submit/job_done protocol
+            if getattr(source, "device", None) != self.device:
+                raise ValueError(
+                    f"JobMux on {self.device} got a source on "
+                    f"{getattr(source, 'device', None)}: the jobs' blocks "
+                    "are decoded where the source delivers them")
+            self._source = source
         else:
             raise ValueError(f"unknown JobMux source {source!r}; expected "
-                             "'sim' or 'live'")
+                             "'sim', 'live', or a source object like "
+                             "runtime.procpool.MuxProcPool")
         self._next_jid = 0
         self._started = False
 

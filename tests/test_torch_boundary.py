@@ -6,7 +6,8 @@
 * no port file names them;
 * ``bind()`` with no CUDA device raises instead of running on the CPU, and
   so do the runtime's entry points (``run_coded_job``, ``run_live_job``,
-  ``JobMux``, ``run_device_job``) and ``coded_matmul`` unless given
+  ``JobMux``, ``run_device_job``, the process runtime's ``run_proc_job``,
+  ``ProcPool`` and ``MuxProcPool``) and ``coded_matmul`` unless given
   ``device="cpu"``;
 * a kernel wrapper given CPU tensors takes the plain version and never
   reaches the CUDA lane, while the CUDA wrapper refuses CPU tensors;
@@ -91,8 +92,9 @@ def _entry_point_calls():
     import warnings
 
     from repro_torch.core import coded_matmul, schemes
-    from repro_torch.runtime import (JobMux, MuxJob, SlowWorkers, run_coded_job,
-                                     run_device_job, run_live_job)
+    from repro_torch.runtime import (JobMux, MuxJob, MuxProcPool, ProcPool, SlowWorkers,
+                                     run_coded_job, run_device_job, run_live_job,
+                                     run_proc_job)
 
     rng = np.random.default_rng(0)
     blocks = [rng.standard_normal((3, 4)) for _ in range(4)]
@@ -113,9 +115,16 @@ def _entry_point_calls():
             warnings.simplefilter("ignore", DeprecationWarning)
             return coded_matmul.coded_matmul(A, B, p, device=device)
 
+    one = schemes.uncoded(1, 1)  # one worker process: the cheapest real job
+    A1, B1 = [rng.standard_normal((6, 2))], [rng.standard_normal((6, 3))]
+
     return {
         "run_coded_job": lambda d: run_coded_job(code, blocks, SlowWorkers(1, 2.0),
                                                  device=d),
+        "run_proc_job": lambda d: run_proc_job(one, A1, B1, 1, device=d),
+        "ProcPool": lambda d: ProcPool(one, 1, A1, B1, 1, device=d),
+        "MuxProcPool": lambda d: MuxProcPool(1, device=d),
+        "JobMux proc": lambda d: JobMux(1, source=MuxProcPool(1, device=d), device=d),
         "run_live_job": lambda d: run_live_job(code, Ab, Bb, 2, device=d),
         "JobMux sim": lambda d: mux("sim", d),
         "JobMux live": lambda d: mux("live", d),
@@ -125,7 +134,9 @@ def _entry_point_calls():
 
 
 @pytest.mark.parametrize("name", ["run_coded_job", "run_live_job", "JobMux sim",
-                                  "JobMux live", "run_device_job", "coded_matmul"])
+                                  "JobMux live", "run_device_job", "coded_matmul",
+                                  "run_proc_job", "ProcPool", "MuxProcPool",
+                                  "JobMux proc"])
 def test_entry_points_without_cuda_raise_unless_asked_for_the_cpu(name):
     if torch.cuda.is_available():
         pytest.skip("a CUDA device is present: the card is meant to be used")
