@@ -43,8 +43,15 @@ have fired and the job to decode, beside ``FaultRealization``'s
 prediction), a respawn and an unrecoverable kill; ``proc_mux`` one
 ``JobMux`` batch over a ``MuxProcPool`` with worker 1 killed; ``schemes``
 the port's scheme checks over the registry and on the main path's
-full-size pack.  Worker processes re-import this script: nothing at its
-module level touches the card.
+full-size pack.  ``serving`` drives the serving port at the full width of
+qwen3-moe-30b-a3b (4 of its 48 layers): one layer on the card against the
+CPU on the same weights, cached decode against one forward, the coded
+expert FFN against the plain one (two of its 130 workers dead, and a
+survivor set that loses rank refused), prefill and decode times, and
+``ServingEngine`` over ``JobMux("live")`` -- coded and uncoded, healthy
+and with worker 0 dead -- and over a ``MuxProcPool`` with worker 1
+killed; it launches none of the kernels.  Worker processes re-import this
+script: nothing at its module level touches the card.
 Each phase prints one JSON line; the line before the last lists the
 kernels with their launches, times and bounds, and the last line is
 ``{"ok": true, "device": {...}}``.  Any failed check raises, so the exit
@@ -1265,6 +1272,290 @@ def phase_live_job(paper: dict) -> None:
          rtol=DECODE_RTOL)
 
 
+# ------------------------------- phase 8b -----------------------------------
+# the serving path at the full width of qwen3-moe-30b-a3b, the JAX package's
+# MoE config (hf:Qwen/Qwen3-30B-A3B: d_model 2048, 32 heads over 4 KV heads
+# of 128, 128 experts top-8 of d_ff 768, vocabulary 151,936, untied head),
+# cut in depth only: 4 of its 48 layers
+SERVE_ARCH, SERVE_LAYERS, SERVE_STEPS = "qwen3-moe-30b-a3b", 4, 4
+SERVE_PROMPTS, SERVE_NEW_TOKENS, SERVE_REQUESTS, SERVE_MAX_SEQ = (32, 128), (8, 16), 8, 256
+SERVE_WORKERS, SERVE_BLOCKS, SERVE_CHUNKS, SERVE_BATCH = 6, 4, 2, 4
+SERVE_DEAD, SERVE_LOST = (0, 1), (0, 1, 2)  # of the expert code's 130 workers
+# The engine's checks run on an 8-request burst (serve_demo's rates, all
+# arriving within 0.2 s): a functional smoke, too short for a tail.  Its
+# latencies are read from a longer window: 64 requests of the same two
+# tenants at 1/16 of their rates (2.31 requests/s, 720 tokens arriving
+# over 30.4 s, about 24 tokens/s offered), below what the engine served
+# in the bursts (38-48 tokens/s on an H100 80GB HBM3 at 700 W), so
+# queueing stays bounded.
+SERVE_LOAD_REQUESTS, SERVE_LOAD_RATE_SCALE, SERVE_LOAD_HORIZON = 64, 1 / 16, 60.0
+# logits against logits, relative to the reference's max|logit|.  Card vs
+# CPU, and cached decode vs one forward, are the same f32 products summed
+# in other orders: over d = 2048 that rounds near sqrt(2048) * eps32 =
+# 2.7e-6 of a product's scale, a few products deep; bf16 anywhere would
+# miss 1e-4 by an order of magnitude.  The coded expert FFN adds its
+# decode's error: an H100 80GB HBM3 read 7.1e-7 healthy and 5.4e-6 with
+# workers 0 and 1 dead, so 1e-4 holds it to f32 too (TF32 or bf16 in the coded
+# products would exceed it).  The rebound decode itself, on the card in
+# float64: its dead workers' columns within 1e-9 of zero (5.6e-14 on the
+# CPU) and D over the survivors times their encode rows within 1e-4 of I
+# (1.5e-6 healthy, 2.3e-5 with workers 0 and 1 dead, on the CPU; the
+# full-survivor D over the same survivors is 2.5 from I).
+SERVE_RTOL, SERVE_CODED_RTOL, SERVE_DECODE_ATOL, SERVE_DEAD_COLS_ATOL = 1e-4, 1e-4, 1e-4, 1e-9
+
+
+def _tree_to(tree: dict, device) -> dict:
+    return {k: _tree_to(v, device) if isinstance(v, dict) else v.to(device)
+            for k, v in tree.items()}
+
+
+def _greedy(model, params, prompt: torch.Tensor, steps: int, D=None):
+    """Prefill ``prompt`` (f32 cache, as the engine keeps it), then ``steps``
+    greedy decode steps: each step's last-position logits (on the host) and
+    the tokens.  ``D`` is the expert code's decode matrix, where coded."""
+    from repro_torch.models import moe
+
+    ctx = moe.coded_moe_decode(D) if D is not None else contextlib.nullcontext()
+    with ctx:
+        logits, cache = model.prefill(params, prompt, max_seq=prompt.shape[1] + steps,
+                                      cache_dtype=torch.float32)
+        out, toks = [logits[:, -1].cpu()], []
+        for _ in range(steps):
+            tok = torch.argmax(logits[:, -1], -1).to(torch.int32)[:, None]
+            toks.append(tok.cpu())
+            logits, cache = model.decode_step(params, cache, tok)
+            out.append(logits[:, -1].cpu())
+    return torch.stack(out, 1), torch.cat(toks, 1)
+
+
+def _logit_err(got: torch.Tensor, want: torch.Tensor) -> float:
+    return float((got - want).abs().max() / want.abs().max())
+
+
+def _wall_ms(fn, dev, reps: int = 3) -> float:
+    """Median host-clock time of fn() ending in a synchronize, after one
+    warm-up call."""
+    from repro_torch.core.blocks import synchronize
+
+    fn()
+    synchronize(dev)
+    times = []
+    for _ in range(reps):
+        t0 = time.perf_counter()
+        fn()
+        synchronize(dev)
+        times.append((time.perf_counter() - t0) * 1e3)
+    return statistics.median(times)
+
+
+def phase_serving(smi: str, dev: torch.device) -> None:
+    """The serving port at full width on the card: (a) one layer on the
+    card and again on the CPU on the same weights; (b) prefill then decode
+    steps against one forward over the same tokens, dropless; (c) the coded
+    expert FFN against the plain one, healthy and with two of its workers
+    dead (the rebound decode checked on the card), and a survivor set that
+    loses rank refused before any step; (d) ``ServingEngine`` over
+    ``JobMux("live")`` on an 8-request burst, coded and uncoded, healthy
+    and with worker 0 dead, then over a ``MuxProcPool`` with worker 1
+    killed; then coded and uncoded, healthy, over a 64-request window, for
+    the latencies.  The prefill and decode times, the engine's summaries
+    and the card memory are printed beside the card's name and power
+    limit."""
+    from repro_torch import configs
+    from repro_torch.core.decoder import DecodingError
+    from repro_torch.models import build, moe
+    from repro_torch.runtime.chaos import kill
+    from repro_torch.runtime.procpool import MuxProcPool
+    from repro_torch.serving import SLO, ServingEngine, TenantSpec, poisson_trace
+
+    t_phase = time.perf_counter()
+    cfg = dataclasses.replace(configs.get(SERVE_ARCH), num_layers=SERVE_LAYERS)
+    torch.cuda.reset_peak_memory_stats()
+    rng = np.random.default_rng(SEED)
+    prompt = torch.from_numpy(rng.integers(0, cfg.vocab_size, (1, SERVE_PROMPTS[0]))
+                              .astype(np.int32)).to(dev)
+    out = {"config": {"arch": cfg.name, "d_model": cfg.d_model, "heads": cfg.num_heads,
+                      "kv_heads": cfg.num_kv_heads, "head_dim": cfg.hd,
+                      "experts": cfg.moe.num_experts, "top_k": cfg.moe.top_k,
+                      "expert_d_ff": cfg.moe.d_ff, "vocab": cfg.vocab_size,
+                      "capacity_factor": cfg.moe.capacity_factor,
+                      "coded_moe_workers": moe.coded_moe_num_workers(cfg)},
+           "reduced": {"num_layers": [configs.get(SERVE_ARCH).num_layers, cfg.num_layers]}}
+
+    # (a) the same weights, one layer, on the card and on the CPU
+    one = dataclasses.replace(cfg, num_layers=1)
+    model = build(one, dev)
+    p1 = model.init(SEED)
+    card, card_tok = _greedy(model, p1, prompt, SERVE_STEPS)
+    t0 = time.perf_counter()
+    host, host_tok = _greedy(build(one, "cpu"), _tree_to(p1, "cpu"), prompt.cpu(), SERVE_STEPS)
+    err = _logit_err(card, host)
+    check(err <= SERVE_RTOL and torch.equal(card_tok, host_tok),
+          f"serving (a): card vs CPU logits err {err}, tokens {card_tok} vs {host_tok}")
+    out["card_vs_cpu"] = {"layers": 1, "logits_err": err, "rtol": SERVE_RTOL,
+                          "tokens": card_tok[0].tolist(), "cpu_s": time.perf_counter() - t0}
+    del p1, model
+
+    params = build(cfg, dev).init(SEED)
+    params_bytes = sum(t.numel() * t.element_size() for t in _leaves(params))
+    out["memory"] = {"params_bytes": params_bytes,
+                     "allocated_after_init_bytes": torch.cuda.memory_allocated()}
+
+    # (b) prefill + decode == one forward, with nothing dropped
+    dropless = build(dataclasses.replace(cfg, moe=dataclasses.replace(
+        cfg.moe, capacity_factor=float(cfg.moe.num_experts))), dev)
+    steps, toks = _greedy(dropless, params, prompt, SERVE_STEPS)
+    fed = torch.cat([prompt, toks.to(dev)], 1)
+    x, _, _ = dropless.forward(params, fed)
+    full = dropless.logits(params, x)[:, prompt.shape[1] - 1:].cpu()
+    err = _logit_err(steps, full)
+    check(err <= SERVE_RTOL and torch.equal(toks, full.argmax(-1)[:, :SERVE_STEPS].int()),
+          f"serving (b): cached decode vs forward logits err {err}")
+    out["decode_vs_forward"] = {"capacity_factor": float(cfg.moe.num_experts),
+                                "logits_err": err, "rtol": SERVE_RTOL}
+    del dropless, x
+
+    # (c) the coded expert FFN against the plain one
+    plain, coded = build(cfg, dev), build(cfg.with_opts(["coded_moe"]), dev)
+    want, want_tok = _greedy(plain, params, prompt, SERVE_STEPS)
+    N, E = moe.coded_moe_num_workers(cfg), cfg.moe.num_experts
+    t0 = time.perf_counter()
+    moe.coded_moe_decode_matrix(cfg)
+    out["coded"] = {"workers": N, "plan_s": time.perf_counter() - t0, "rtol": SERVE_CODED_RTOL,
+                    "decode_atol": SERVE_DECODE_ATOL, "dead_cols_atol": SERVE_DEAD_COLS_ATOL}
+    enc = moe._coded_moe_mats(cfg.coded.scheme, E, N, dev)[0].double()  # (N, E)
+    eye = torch.eye(E, dtype=torch.float64, device=dev)
+    for dead in ((), SERVE_DEAD):
+        surv = np.ones(N, dtype=bool)
+        surv[list(dead)] = False
+        D = torch.as_tensor(moe.coded_moe_decode_matrix(cfg, surv), device=dev)
+        # every worker's output is computed, so the logits alone would pass
+        # an unbound D too: the rebind is held here
+        live = torch.as_tensor(surv, device=dev)
+        dead_cols = float(D[:, ~live].abs().max()) if dead else 0.0
+        decode_err = float((D.double()[:, live] @ enc[live] - eye).abs().max())
+        check(dead_cols <= SERVE_DEAD_COLS_ATOL and decode_err <= SERVE_DECODE_ATOL,
+              f"serving (c): decode rebound for dead {dead}: dead columns {dead_cols}, "
+              f"|D M - I| {decode_err}")
+        got, got_tok = _greedy(coded, params, prompt, SERVE_STEPS, D)
+        err = _logit_err(got, want)
+        check(err <= SERVE_CODED_RTOL and torch.equal(got_tok, want_tok),
+              f"serving (c): coded, dead {dead}: logits err {err}, tokens {got_tok} vs {want_tok}")
+        out["coded"][f"dead_{list(dead)}"] = {"logits_err": err, "decode_err": decode_err,
+                                              "dead_cols_max": dead_cols}
+    lost = np.ones(N, dtype=bool)
+    lost[list(SERVE_LOST)] = False
+    try:
+        moe.coded_moe_decode_matrix(cfg, lost)
+        raised = False
+    except DecodingError:
+        raised = True
+    check(raised, f"serving (c): survivors without workers {SERVE_LOST} decoded")
+
+    # the steps' times: prefill per prompt length, decode per token
+    times = {}
+    for name, model, D in (("plain", plain, None),
+                           ("coded", coded, torch.as_tensor(moe.coded_moe_decode_matrix(cfg),
+                                                            device=dev))):
+        ctx = moe.coded_moe_decode(D) if D is not None else contextlib.nullcontext()
+        with ctx:
+            row = {}
+            for plen in SERVE_PROMPTS:
+                toks = torch.from_numpy(rng.integers(0, cfg.vocab_size, (1, plen))
+                                        .astype(np.int32)).to(dev)
+                row[f"prefill_{plen}_ms"] = _wall_ms(lambda: model.prefill(
+                    params, toks, max_seq=SERVE_MAX_SEQ, cache_dtype=torch.float32), dev)
+            _, cache = model.prefill(params, prompt, max_seq=SERVE_MAX_SEQ,
+                                     cache_dtype=torch.float32)
+            tok = prompt[:, -1:]
+            state = {"cache": cache}
+
+            def step():
+                _, state["cache"] = model.decode_step(params, state["cache"], tok)
+
+            row["decode_ms_per_token"] = _wall_ms(step, dev, reps=8)
+        times[name] = row
+    out["times"] = times
+    del plain, coded, cache, state
+
+    # (d) the engine, over JobMux("live") on the card, then a process pool
+    tenants = [TenantSpec("interactive", rate=25.0, prompt_len=SERVE_PROMPTS[0],
+                          max_new_tokens=SERVE_NEW_TOKENS[0], slo=SLO(ttft=120.0, per_token=60.0)),
+               TenantSpec("batch", rate=12.0, prompt_len=SERVE_PROMPTS[1],
+                          max_new_tokens=SERVE_NEW_TOKENS[1], slo=SLO(ttft=240.0, per_token=120.0))]
+    burst = lambda: poisson_trace(tenants, horizon=0.5, seed=5,  # noqa: E731
+                                  max_requests=SERVE_REQUESTS)
+    check(len({r.tenant for r in burst()}) == 2, "serving (d): want both tenants in the trace")
+
+    def serve(coded_arm: bool, trace=burst, **kw) -> tuple[dict, dict]:
+        eng = ServingEngine(cfg, coded=coded_arm, num_workers=SERVE_WORKERS,
+                            n_blocks=SERVE_BLOCKS, num_chunks=SERVE_CHUNKS,
+                            max_batch=SERVE_BATCH, max_seq=SERVE_MAX_SEQ, seed=SEED,
+                            device=dev, params=params, **kw)
+        t0 = time.perf_counter()
+        with eng:
+            eng.warmup(SERVE_PROMPTS)
+            ready_s = time.perf_counter() - t0
+            t0 = time.perf_counter()
+            reqs = trace()
+            metrics = eng.run(reqs)
+            wall = time.perf_counter() - t0
+        s = metrics.summary()
+        s.update(wall_s=wall, ready_s=ready_s, last_arrival_s=reqs[-1].arrival_time,
+                 tokens_per_s=s["tokens"] / wall if wall > 0 else None,
+                 errors=sorted({r.error for r in metrics.requests if r.error}))
+        return s, {r.rid: r.tokens for r in metrics.requests}
+
+    arms, tokens = {}, {}
+    for coded_arm in (True, False):
+        for dead in ((), (0,)):
+            key = f"{'coded' if coded_arm else 'uncoded'}_{'worker0_dead' if dead else 'healthy'}"
+            arms[key], tokens[key] = serve(coded_arm, source="live", dead_workers=dead)
+    check(tokens["coded_healthy"] == tokens["uncoded_healthy"],
+          "serving (d): coded and uncoded arms gave different tokens")
+    for key in ("coded_healthy", "uncoded_healthy", "coded_worker0_dead"):
+        check(arms[key]["completed"] == SERVE_REQUESTS, f"serving (d) {key}: {arms[key]}")
+    check(arms["coded_worker0_dead"]["straggler_recoveries"] >= 1,
+          f"serving (d): no straggler recovery with worker 0 dead: {arms['coded_worker0_dead']}")
+    check(arms["uncoded_worker0_dead"]["completed"] == 0,
+          f"serving (d): uncoded with worker 0 dead completed: {arms['uncoded_worker0_dead']}")
+
+    pool = MuxProcPool(SERVE_WORKERS, plan=[kill(1, after_chunk=0)], timeout=PROC_TIMEOUT_S,
+                       device=dev)
+    arms["coded_procpool_worker1_killed"], tokens["proc"] = serve(True, source=pool)
+    procs = list(pool._procs.values())
+    kinds = sorted({e["kind"] for e in pool.ledger.entries})
+    s = arms["coded_procpool_worker1_killed"]
+    s["ledger_kinds"] = kinds
+    s["startup"] = _startup(list(pool.startup.values()))
+    check(all(not p.is_alive() for p in procs), "serving (d): a worker process outlived the pool")
+    check(s["completed"] == SERVE_REQUESTS and "kill" in kinds and s["straggler_recoveries"] >= 1
+          and tokens["proc"] == tokens["coded_healthy"], f"serving (d) process pool: {s}")
+    out["engine"] = arms
+
+    # the latencies, over a window long enough for a tail
+    slow = [dataclasses.replace(t, rate=t.rate * SERVE_LOAD_RATE_SCALE) for t in tenants]
+    window = lambda: poisson_trace(slow, horizon=SERVE_LOAD_HORIZON, seed=5,  # noqa: E731
+                                   max_requests=SERVE_LOAD_REQUESTS)
+    load, load_tokens = {"rate_scale": SERVE_LOAD_RATE_SCALE}, {}
+    for coded_arm in (True, False):
+        key = "coded_healthy" if coded_arm else "uncoded_healthy"
+        load[key], load_tokens[key] = serve(coded_arm, trace=window, source="live")
+        check(load[key]["completed"] == SERVE_LOAD_REQUESTS, f"serving (d) load {key}: {load[key]}")
+    check(load_tokens["coded_healthy"] == load_tokens["uncoded_healthy"],
+          "serving (d) load: coded and uncoded arms gave different tokens")
+    out["engine_load"] = load
+    out["memory"]["peak_allocated_bytes"] = torch.cuda.max_memory_allocated()
+    del params
+    print(smi, flush=True)
+    emit(phase="serving", nvidia_smi=smi, seconds=time.perf_counter() - t_phase, **out)
+
+
+def _leaves(tree: dict):
+    for v in tree.values():
+        yield from (_leaves(v) if isinstance(v, dict) else (v,))
+
+
 # ------------------------------- phase 9 ------------------------------------
 
 def _counted(fn):
@@ -1583,9 +1874,11 @@ def main() -> int:
     del full
     torch.cuda.empty_cache()
     phase_live_job(paper)
+    _, by_path["serving"] = _counted(lambda: phase_serving(info["nvidia_smi"], torch.device("cuda", 0)))
+    torch.cuda.empty_cache()
     _, by_path["proc_job"] = _counted(lambda: phase_proc_job(paper))
     _, by_path["proc_mux"] = _counted(lambda: phase_proc_mux(paper))
-    for path in ("schemes", "proc_job", "proc_mux"):  # they run none of the kernels
+    for path in ("schemes", "serving", "proc_job", "proc_mux"):  # they run none of the kernels
         check(not any(by_path[path].values()), f"{path} launched {by_path[path]}")
     for row in kernels:  # each path's counts, read on their own, and their sum
         row["launches_by_path"] = {"main": row["launches"], **{

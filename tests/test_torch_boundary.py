@@ -7,8 +7,10 @@
 * ``bind()`` with no CUDA device raises instead of running on the CPU, and
   so do the runtime's entry points (``run_coded_job``, ``run_live_job``,
   ``JobMux``, ``run_device_job``, the process runtime's ``run_proc_job``,
-  ``ProcPool`` and ``MuxProcPool``) and ``coded_matmul`` unless given
+  ``ProcPool`` and ``MuxProcPool``), ``coded_matmul`` and the serving
+  path's (``build``, ``generate``, ``ServingEngine``) unless given
   ``device="cpu"``;
+* ``import repro_torch.serving`` loads neither the model nor torch;
 * a kernel wrapper given CPU tensors takes the plain version and never
   reaches the CUDA lane, while the CUDA wrapper refuses CPU tensors;
 * ``chip_smoke.py`` fails, printing no result, where it cannot run.
@@ -145,6 +147,47 @@ def test_entry_points_without_cuda_raise_unless_asked_for_the_cpu(name):
         with pytest.raises(RuntimeError, match="no CUDA device"):
             call(device)
     assert call("cpu") is not None
+
+
+def _serving_calls():
+    """Each entry point of the serving path, as a call taking ``device``."""
+    from repro_torch.configs import get
+    from repro_torch.models import build
+    from repro_torch.serving import ServingEngine, generate
+
+    dense, moe = get("internlm2-1.8b").reduced(), get("qwen3-moe-30b-a3b").reduced()
+
+    def gen(device):
+        model = build(dense, device)
+        return generate(model, model.init(), np.zeros((1, 4), np.int32), steps=2,
+                        max_seq=8)
+
+    return {
+        "build": lambda d: build(dense, d),
+        "generate": gen,
+        "ServingEngine": lambda d: ServingEngine(moe, device=d),
+    }
+
+
+@pytest.mark.parametrize("name", ["build", "generate", "ServingEngine"])
+def test_serving_entry_points_without_cuda_raise_unless_asked_for_the_cpu(name):
+    if torch.cuda.is_available():
+        pytest.skip("a CUDA device is present: the card is meant to be used")
+    call = _serving_calls()[name]
+    for device in (None, "cuda"):
+        with pytest.raises(RuntimeError, match="no CUDA device"):
+            call(device)
+    assert call("cpu") is not None
+
+
+def test_importing_serving_loads_neither_the_model_nor_torch():
+    code = ("import sys; sys.path.insert(0, sys.argv[1]); import repro_torch.serving; "
+            "print(sorted(m for m in sys.modules if m == 'torch' or "
+            "m.startswith(('repro_torch.models', 'repro_torch.serving.engine'))))")
+    proc = subprocess.run([sys.executable, "-c", code, str(ROOT / "src")],
+                          capture_output=True, text=True, timeout=120, cwd=ROOT)
+    assert proc.returncode == 0, proc.stderr[-2000:]
+    assert proc.stdout.strip() == "[]"
 
 
 def _operands(seed=0, CB=2, L=3, bs=8, s=32, n=2, bt=24, mn=4):
