@@ -50,8 +50,16 @@ expert FFN against the plain one (two of its 130 workers dead, and a
 survivor set that loses rank refused), prefill and decode times, and
 ``ServingEngine`` over ``JobMux("live")`` -- coded and uncoded, healthy
 and with worker 0 dead -- and over a ``MuxProcPool`` with worker 1
-killed; it launches none of the kernels.  Worker processes re-import this
-script: nothing at its module level touches the card.
+killed; it launches none of the kernels.  ``train`` drives the training
+path at the full width of internlm2-1.8b: five train steps at full depth
+(the loss, the gradient norm, the step time, the peak memory), one layer
+on the card against the CPU with each cross entropy, the training CLI
+through a simulated failure and its resume, a coded checkpoint of one
+layer's parameters restored from all of its targets and from two thirds
+of them, and the coded expert FFN's gradients (qwen3-moe-30b-a3b, one
+layer, two workers dead) against the plain FFN's; it launches none of the
+kernels either.  Worker processes re-import this script: nothing at its
+module level touches the card.
 Each phase prints one JSON line; the line before the last lists the
 kernels with their launches, times and bounds, and the last line is
 ``{"ok": true, "device": {...}}``.  Any failed check raises, so the exit
@@ -1305,7 +1313,9 @@ SERVE_RTOL, SERVE_CODED_RTOL, SERVE_DECODE_ATOL, SERVE_DEAD_COLS_ATOL = 1e-4, 1e
 
 
 def _tree_to(tree: dict, device) -> dict:
-    return {k: _tree_to(v, device) if isinstance(v, dict) else v.to(device)
+    """A copy of the tree on ``device`` (a copy even where it is there
+    already, as when a rehearsal's card is the CPU)."""
+    return {k: _tree_to(v, device) if isinstance(v, dict) else v.to(device, copy=True)
             for k, v in tree.items()}
 
 
@@ -1554,6 +1564,339 @@ def phase_serving(smi: str, dev: torch.device) -> None:
 def _leaves(tree: dict):
     for v in tree.values():
         yield from (_leaves(v) if isinstance(v, dict) else (v,))
+
+
+# ------------------------------- phase 8c -----------------------------------
+# the training path at the full width of internlm2-1.8b (the JAX package's
+# trainer's config, arXiv:2403.17297: d_model 2048, 16 heads over 8 KV
+# heads of 128, SwiGLU d_ff 8192, vocabulary 92,544, untied head, 24
+# layers; 1.89 B parameters, 30 GB with their gradients and f32 Adam
+# moments): (a) five steps at full depth, batch 4 x 512 from
+# SyntheticCorpus, chunked cross entropy; (b) one layer deep, batch 1 x 128,
+# the card against the CPU on the same parameters; (c) the CLI two layers
+# deep; (d) one layer group's parameters (63 M floats) as a coded
+# checkpoint, m = n = 4 over 24 targets; (e) one layer of qwen3-moe-30b-a3b
+# (serving's config) with the coded expert FFN, workers 0 and 1 dead.
+TRAIN_ARCH, TRAIN_BATCH, TRAIN_SEQ, TRAIN_STEPS = "internlm2-1.8b", 4, 512, 5
+TRAIN_LR, TRAIN_WARMUP = 3e-4, 20  # the CLI's defaults
+TRAIN_CPU_BATCH, TRAIN_CPU_SEQ, TRAIN_CPU_STEPS = 1, 128, 2
+TRAIN_CLI = ["--layers", "2", "--steps", "7", "--batch", "2", "--seq", "256",
+             "--ckpt-every", "5", "--warmup", "2", "--opt-dtype", "bfloat16"]
+TRAIN_CLI_FAIL, TRAIN_CLI_TIMEOUT_S = 6, 300
+TRAIN_CODED_M, TRAIN_CODED_TARGETS, TRAIN_CODED_DROP = 4, 24, 8
+TRAIN_MOE_BATCH, TRAIN_MOE_SEQ = 2, 128
+# step 0's loss against ln V: at init the head's logits are about normal
+# with a std of sqrt(d) * 0.02 = 0.9 (the final norm's unit rms times the
+# head's init scale), which puts E[logsumexp] near ln V + 0.9^2 / 2 and
+# the label's logit near 0: within 1.0 of ln V
+TRAIN_LOSS0_ATOL = 1.0
+# card vs CPU, f32 with TF32 off: the loss within 1e-5 relative and the
+# global gradient norm within 1e-4 (f32 sums in other orders); the first
+# step's gradients within 1e-4 of each leaf's largest magnitude.  The
+# fused cross entropy's backward products run in bf16: its gradients
+# within one bf16 rounding of that (2^-7).  The parameters after each step
+# within 2.02 lr a step of each other: Adam's first steps move every entry
+# by about lr whatever its gradient's size (at most 1.0013 lr at step 2,
+# plus the decay's lr * 0.01 * |p|), so a gradient near 0 that rounds to
+# the other sign moves its entry the other way (the embedding's init scale
+# is 1/sqrt(V) = 0.0033, so that is 1.5% of its largest entry).
+TRAIN_LOSS_RTOL, TRAIN_GNORM_RTOL, TRAIN_GRAD_RTOL, TRAIN_BF16_RTOL = 1e-5, 1e-4, 1e-4, 2.0 ** -7
+# the coded checkpoint's float64 targets decode to the f32 values: exact
+# but for float64 rounding far below one f32 ulp
+TRAIN_CKPT_ATOL = 1e-6
+# coded vs plain expert FFN, loss and each gradient leaf relative to its
+# largest magnitude: 1e-3.  The expert code (m = E = 128, n = 1) draws its
+# weights from the paper's set 1..(mn)^2 = 16384, so a coded product's f32
+# sums round at up to eps32 * 16384 = 1e-3 of the products' scale, and the
+# backward runs its products through the transposed encode and decode.
+# Serving's logits read 5.4e-6 (H100 80GB HBM3, 700 W); a gradient leaf
+# that a few routed tokens make reads up to 1.03e-4 on the same card.
+TRAIN_CODED_RTOL = 1e-3
+
+
+def _tree_errs(got: dict, want: dict) -> tuple[float, float]:
+    """The largest over leaves of max|got - want|, and of that over the
+    leaf's max|want|."""
+    from repro_torch.training.tree import tree_leaves
+
+    worst_abs = worst_rel = 0.0
+    for g, w in zip(tree_leaves(got), tree_leaves(want), strict=True):
+        w = w.float().cpu()
+        err = float((g.float().cpu() - w).abs().max())
+        worst_abs = max(worst_abs, err)
+        worst_rel = max(worst_rel, err / max(float(w.abs().max()), 1e-30))
+    return worst_abs, worst_rel
+
+
+def _train_cli(dev: torch.device, ckpt: str, *extra: str) -> tuple[int, str, float]:
+    """``python -m repro_torch.launch.train`` on the card (the CPU when
+    rehearsed there): exit code, output, seconds."""
+    import os
+
+    cmd = [sys.executable, "-m", "repro_torch.launch.train", "--arch", TRAIN_ARCH,
+           *TRAIN_CLI, "--ckpt-dir", ckpt, *extra,
+           *([] if dev.type == "cuda" else ["--device", "cpu"])]
+    env = dict(os.environ, PYTHONPATH=str(ROOT / "src"))
+    t0 = time.perf_counter()
+    proc = subprocess.run(cmd, capture_output=True, text=True, env=env,
+                          timeout=TRAIN_CLI_TIMEOUT_S)
+    return proc.returncode, proc.stdout + proc.stderr, time.perf_counter() - t0
+
+
+def phase_train(smi: str, dev: torch.device) -> None:
+    """The training path on the card, at internlm2-1.8b's full width: (a)
+    full depth, five train steps: each step's loss and gradient norm, the
+    step time, the peak memory, one step under the profiler; (d) one layer
+    group's trained parameters as a coded checkpoint: restored from every
+    target and with a third of them dropped, and refused from a subset that
+    loses rank; (b) one layer, the card against the CPU on the same
+    parameters and batches, with each cross entropy; (e) qwen3-moe-30b-a3b,
+    one layer, a train step's loss and gradients with the coded expert FFN
+    (workers 0 and 1 dead, the decode rebound) against the plain FFN's;
+    (c) the training CLI two layers deep: a simulated failure, a resume
+    from its checkpoint, and the end."""
+    import random
+    import shutil
+    import tempfile
+
+    from repro_torch import configs
+    from repro_torch.core.blocks import synchronize
+    from repro_torch.core.decoder import DecodingError
+    from repro_torch.models import build, moe
+    from repro_torch.training import AdamW, cosine_warmup_schedule, make_train_step
+    from repro_torch.training.checkpoint import (restore_coded_checkpoint,
+                                                 save_coded_checkpoint)
+    from repro_torch.training.data import SyntheticCorpus
+    from repro_torch.training.train_step import value_and_grad
+
+    t_phase = time.perf_counter()
+    cfg = configs.get(TRAIN_ARCH)
+    out = {"config": {"arch": cfg.name, "layers": cfg.num_layers, "d_model": cfg.d_model,
+                      "heads": cfg.num_heads, "kv_heads": cfg.num_kv_heads, "head_dim": cfg.hd,
+                      "d_ff": cfg.d_ff, "vocab": cfg.vocab_size, "batch": TRAIN_BATCH,
+                      "seq": TRAIN_SEQ, "remat": cfg.remat}, "part_seconds": {}}
+
+    def opt():
+        return AdamW(lr=cosine_warmup_schedule(TRAIN_LR, TRAIN_WARMUP, TRAIN_STEPS))
+
+    # (a) full width and depth
+    t_part = time.perf_counter()
+    t0 = time.perf_counter()
+    torch.cuda.reset_peak_memory_stats()
+    model = build(cfg, dev)
+    params = model.init(SEED)
+    optimizer = opt()
+    state = optimizer.init(params)
+    step = make_train_step(model, optimizer)
+    corpus = SyntheticCorpus(cfg, TRAIN_BATCH, TRAIN_SEQ, seed=SEED)
+    n_params = sum(t.numel() for t in _leaves(params))
+    init_s = time.perf_counter() - t0
+    rows = []
+    for i in range(TRAIN_STEPS):
+        batch = corpus.make_batch(i)
+        synchronize(dev)
+        t0 = time.perf_counter()
+        params, state, met = step(params, state, batch)
+        loss, gnorm = float(met["loss"]), float(met["grad_norm"])
+        rows.append({"step": i, "loss": loss, "grad_norm": gnorm,
+                     "s": time.perf_counter() - t0})
+        print(f"train (a) step {i}: loss {loss:.4f} grad_norm {gnorm:.4f} "
+              f"{rows[-1]['s']:.3f} s", flush=True)
+    ln_v = math.log(cfg.vocab_size)
+    check(all(math.isfinite(r["loss"]) and math.isfinite(r["grad_norm"]) for r in rows),
+          f"train (a): a loss or gradient norm is not finite: {rows}")
+    check(abs(rows[0]["loss"] - ln_v) <= TRAIN_LOSS0_ATOL,
+          f"train (a): step 0 loss {rows[0]['loss']} is not within {TRAIN_LOSS0_ATOL} "
+          f"of ln V = {ln_v}")
+    check(all(torch.isfinite(t).all() for t in _leaves(params)),
+          "train (a): a parameter is not finite after the steps")
+    step_s = statistics.median(r["s"] for r in rows[1:])
+    tokens = TRAIN_BATCH * TRAIN_SEQ
+    # the step's FLOPs: 8 N T for the products (forward, re-materialised
+    # forward, backward; N without the embedding, a gather) and 16 L d S T
+    # for the attention's scores and values (all S x S of them computed)
+    dense = n_params - cfg.vocab_size * cfg.d_model
+    flops = 8 * dense * tokens + 16 * cfg.num_layers * cfg.d_model * TRAIN_SEQ * tokens
+    out["full"] = {"params": n_params, "steps": rows, "init_s": init_s,
+                   "step_s_median_after_first": step_s, "tokens_per_s": tokens / step_s,
+                   "ln_vocab": ln_v, "loss0_atol": TRAIN_LOSS0_ATOL,
+                   "flops_per_step": flops, "f32_bound_s": flops / F32_FLOP_PER_S,
+                   "peak_allocated_bytes": torch.cuda.max_memory_allocated(),
+                   "params_bytes": 4 * n_params}
+    if dev.type == "cuda":
+        batch = corpus.make_batch(TRAIN_STEPS)
+        out["full"]["profile_step"] = profile_apply(lambda: step(params, state, batch))
+    print(f"train (a): {n_params:,} parameters, {step_s:.3f} s a step, peak "
+          f"{out['full']['peak_allocated_bytes'] / 1e9:.2f} GB ({smi})", flush=True)
+
+    out["part_seconds"]["a"] = time.perf_counter() - t_part
+    # (d) a coded checkpoint of layer group 0's trained parameters
+    t_part = time.perf_counter()
+    payload = {k: v[0].clone() for k, v in _flat_items(params["groups"])}
+    del model, step, state, optimizer, corpus
+    params = None
+    synchronize(dev)
+    torch.cuda.empty_cache()
+    ckpt_dir = tempfile.mkdtemp(prefix="chip_smoke_train_")
+    try:
+        coded = {"payload_floats": sum(t.numel() for t in payload.values()),
+                 "m": TRAIN_CODED_M, "n": TRAIN_CODED_M, "targets": TRAIN_CODED_TARGETS,
+                 "atol": TRAIN_CKPT_ATOL}
+        t0 = time.perf_counter()
+        manifest = save_coded_checkpoint(ckpt_dir, 1, payload, m=TRAIN_CODED_M,
+                                         n=TRAIN_CODED_M, num_targets=TRAIN_CODED_TARGETS,
+                                         device=dev)
+        coded["save_s"] = time.perf_counter() - t0
+        coded["bytes_on_disk"] = sum(p.stat().st_size for p in
+                                     pathlib.Path(ckpt_dir).glob("coded_*/target_*.npz"))
+        M = np.asarray(manifest["M_rows"])
+        mn = TRAIN_CODED_M * TRAIN_CODED_M
+        order = random.Random(SEED)
+        keep = drop_bad = None
+        for _ in range(200):  # a decodable subset, and one that loses rank
+            rows_ = sorted(order.sample(range(TRAIN_CODED_TARGETS),
+                                        TRAIN_CODED_TARGETS - TRAIN_CODED_DROP))
+            full_rank = np.linalg.matrix_rank(M[rows_]) == mn
+            keep = keep or (rows_ if full_rank else None)
+            drop_bad = drop_bad or (None if full_rank else rows_)
+            if keep and drop_bad:
+                break
+        check(keep is not None and drop_bad is not None,
+              f"train (d): no decodable or no rank-losing subset of "
+              f"{TRAIN_CODED_TARGETS - TRAIN_CODED_DROP} targets")
+        for name, available in (("all", None), ("third_dropped", keep)):
+            t0 = time.perf_counter()
+            got, stats = restore_coded_checkpoint(ckpt_dir, 1, payload, available=available,
+                                                  device=dev)
+            secs = time.perf_counter() - t0
+            err = max(float((got[k].float() - payload[k].float()).abs().max()) for k in payload)
+            check(err <= TRAIN_CKPT_ATOL, f"train (d) {name}: restore err {err}")
+            coded[name] = {"available": available, "restore_s": secs, "max_abs_err": err,
+                           "stats": stats.as_dict()}
+            del got
+        try:
+            restore_coded_checkpoint(ckpt_dir, 1, payload, available=drop_bad, device=dev)
+            refused = False
+        except DecodingError:
+            refused = True
+        check(refused, f"train (d): targets {drop_bad} lose rank but restored")
+        coded["refused"] = {"available": drop_bad}
+        out["coded_checkpoint"] = coded
+    finally:
+        shutil.rmtree(ckpt_dir, ignore_errors=True)
+    del payload
+    torch.cuda.empty_cache()
+
+    out["part_seconds"]["d"] = time.perf_counter() - t_part
+    # (b) one layer, the card against the CPU, with each cross entropy
+    t_part = time.perf_counter()
+    one = dataclasses.replace(cfg, num_layers=1)
+    vs_cpu = {}
+    for ce in ("chunked", "fused"):
+        c = one.with_opts(["fused_ce"]) if ce == "fused" else one
+        card_model, host_model = build(c, dev), build(c, "cpu")
+        p_card = card_model.init(SEED)
+        p_host = _tree_to(p_card, "cpu")
+        o = opt()
+        s_card, s_host = o.init(p_card), o.init(p_host)
+        st_card, st_host = make_train_step(card_model, o), make_train_step(host_model, o)
+        corpus = SyntheticCorpus(c, TRAIN_CPU_BATCH, TRAIN_CPU_SEQ, seed=SEED)
+        grad_rtol = TRAIN_BF16_RTOL if ce == "fused" else TRAIN_GRAD_RTOL
+        t0 = time.perf_counter()
+        _, g_host = value_and_grad(host_model, p_host, corpus.make_batch(0))
+        cpu_s = time.perf_counter() - t0
+        _, g_card = value_and_grad(card_model, p_card, corpus.make_batch(0))
+        _, grads_rel = _tree_errs(g_card, g_host)
+        check(grads_rel <= grad_rtol, f"train (b) {ce}: card vs CPU gradients {grads_rel}")
+        del g_card, g_host
+        steps, moved = [], 0.0
+        for i in range(TRAIN_CPU_STEPS):
+            batch = corpus.make_batch(i)
+            _, _, mc = st_card(p_card, s_card, batch)
+            t0 = time.perf_counter()
+            _, _, mh = st_host(p_host, s_host, batch)
+            cpu_s += time.perf_counter() - t0
+            moved += 2.02 * float(o.lr(s_host["count"]))
+            lc, lh = float(mc["loss"]), float(mh["loss"])
+            gc, gh = float(mc["grad_norm"]), float(mh["grad_norm"])
+            p_abs, p_rel = _tree_errs(p_card, p_host)
+            row = {"loss_rel": abs(lc - lh) / abs(lh), "grad_norm_rel": abs(gc - gh) / abs(gh),
+                   "params_max_abs": p_abs, "params_rel": p_rel, "two_lr_sum": moved,
+                   "loss": lc, "grad_norm": gc}
+            check(row["loss_rel"] <= TRAIN_LOSS_RTOL and row["grad_norm_rel"] <= TRAIN_GNORM_RTOL
+                  and row["params_max_abs"] <= moved,
+                  f"train (b) {ce} step {i}: card vs CPU {row}")
+            steps.append(row)
+        vs_cpu[ce] = {"grads_rel": grads_rel, "grads_rtol": grad_rtol, "steps": steps,
+                      "cpu_s": cpu_s}
+        print(f"train (b) {ce}: {vs_cpu[ce]}", flush=True)
+        del card_model, p_card, s_card, st_card, host_model, p_host, s_host, st_host
+    out["card_vs_cpu"] = {"layers": 1, "batch": TRAIN_CPU_BATCH, "seq": TRAIN_CPU_SEQ,
+                          "loss_rtol": TRAIN_LOSS_RTOL, "grad_norm_rtol": TRAIN_GNORM_RTOL,
+                          **vs_cpu}
+    torch.cuda.empty_cache()
+
+    out["part_seconds"]["b"] = time.perf_counter() - t_part
+    # (e) the coded expert FFN's backward, two of its workers dead
+    t_part = time.perf_counter()
+    mcfg = dataclasses.replace(configs.get(SERVE_ARCH), num_layers=1)
+    plain, coded_model = build(mcfg, dev), build(mcfg.with_opts(["coded_moe"]), dev)
+    mp = plain.init(SEED)
+    batch = SyntheticCorpus(mcfg, TRAIN_MOE_BATCH, TRAIN_MOE_SEQ, seed=SEED).make_batch(0)
+    want_loss, want = value_and_grad(plain, mp, batch)
+    surv = np.ones(moe.coded_moe_num_workers(mcfg), dtype=bool)
+    surv[list(SERVE_DEAD)] = False
+    D = torch.as_tensor(moe.coded_moe_decode_matrix(mcfg, surv), device=dev)
+    with moe.coded_moe_decode(D):
+        got_loss, got = value_and_grad(coded_model, mp, batch)
+        o = opt()
+        _, _, met = make_train_step(coded_model, o)(mp, o.init(mp), batch)
+    loss_rel = abs(float(got_loss) - float(want_loss)) / abs(float(want_loss))
+    by_leaf = sorted(((_tree_errs({"x": g}, {"x": w})[1], k) for (k, g), (_, w) in zip(
+        _flat_items(got), _flat_items(want))), reverse=True)[:3]
+    grad_err = by_leaf[0][0]
+    step_loss_rel = abs(float(met["loss"]) - float(got_loss)) / abs(float(got_loss))
+    check(loss_rel <= TRAIN_CODED_RTOL and grad_err <= TRAIN_CODED_RTOL
+          and step_loss_rel <= TRAIN_LOSS_RTOL and math.isfinite(float(met["grad_norm"])),
+          f"train (e): coded vs plain loss {loss_rel}, grads {grad_err}, step {step_loss_rel}")
+    out["coded_moe_backward"] = {"arch": mcfg.name, "layers": 1, "dead": list(SERVE_DEAD),
+                                 "workers": int(surv.size), "tokens": TRAIN_MOE_BATCH
+                                 * TRAIN_MOE_SEQ, "loss": float(got_loss),
+                                 "loss_rel": loss_rel, "grads_rel": grad_err,
+                                 "worst_leaves": [{"leaf": k, "rel": e} for e, k in by_leaf],
+                                 "step_loss_rel": step_loss_rel, "rtol": TRAIN_CODED_RTOL}
+    del plain, coded_model, mp, want, got, D
+    torch.cuda.empty_cache()
+
+    out["part_seconds"]["e"] = time.perf_counter() - t_part
+    # (c) the CLI: fail after a checkpoint, resume from it, finish
+    t_part = time.perf_counter()
+    ckpt = tempfile.mkdtemp(prefix="chip_smoke_cli_")
+    try:
+        rc1, out1, s1 = _train_cli(dev, ckpt, "--simulate-failure", str(TRAIN_CLI_FAIL))
+        check(rc1 == 17 and "fresh start" in out1
+              and f"SIMULATED FAILURE at step {TRAIN_CLI_FAIL}" in out1,
+              f"train (c): the failing run exited {rc1}: {out1[-2000:]}")
+        rc2, out2, s2 = _train_cli(dev, ckpt)
+        check(rc2 == 0 and "resumed from step 5" in out2 and "done: 7 steps" in out2,
+              f"train (c): the resumed run exited {rc2}: {out2[-2000:]}")
+        lines = [ln for ln in (out1 + out2).splitlines() if ln.startswith("[train]")]
+        out["cli"] = {"args": TRAIN_CLI, "fail_at": TRAIN_CLI_FAIL, "failed_run_s": s1,
+                      "resumed_run_s": s2, "lines": lines}
+    finally:
+        shutil.rmtree(ckpt, ignore_errors=True)
+    out["part_seconds"]["c"] = time.perf_counter() - t_part
+    print(smi, flush=True)
+    emit(phase="train", nvidia_smi=smi, seconds=time.perf_counter() - t_phase, **out)
+
+
+def _flat_items(tree: dict, prefix: str = ""):
+    """(path, leaf) of a nested dict."""
+    for k, v in tree.items():
+        if isinstance(v, dict):
+            yield from _flat_items(v, f"{prefix}{k}/")
+        else:
+            yield f"{prefix}{k}", v
 
 
 # ------------------------------- phase 9 ------------------------------------
@@ -1876,9 +2219,11 @@ def main() -> int:
     phase_live_job(paper)
     _, by_path["serving"] = _counted(lambda: phase_serving(info["nvidia_smi"], torch.device("cuda", 0)))
     torch.cuda.empty_cache()
+    _, by_path["train"] = _counted(lambda: phase_train(info["nvidia_smi"], torch.device("cuda", 0)))
+    torch.cuda.empty_cache()
     _, by_path["proc_job"] = _counted(lambda: phase_proc_job(paper))
     _, by_path["proc_mux"] = _counted(lambda: phase_proc_mux(paper))
-    for path in ("schemes", "serving", "proc_job", "proc_mux"):  # they run none of the kernels
+    for path in ("schemes", "serving", "train", "proc_job", "proc_mux"):  # they run none of the kernels
         check(not any(by_path[path].values()), f"{path} launched {by_path[path]}")
     for row in kernels:  # each path's counts, read on their own, and their sum
         row["launches_by_path"] = {"main": row["launches"], **{

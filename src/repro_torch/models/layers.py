@@ -3,8 +3,8 @@
 Plain functions on tensors, computing what the JAX package's layers compute
 in the same dtypes: the norms reduce in f32 and cast back before the scale,
 RoPE rotates halves (not pairs) in f32, and ``gelu`` is the tanh form.  The
-cross-entropy functions belong to training and are not here yet (ROADMAP
-queue 1, item 7).
+two causal-LM cross-entropy functions (``cross_entropy_chunked`` and
+``cross_entropy_fused``) scan token chunks and never hold the (T, V) logits.
 """
 
 from __future__ import annotations
@@ -14,6 +14,7 @@ import math
 
 import torch
 import torch.nn.functional as F
+from torch.utils.checkpoint import checkpoint
 
 
 # ------------------------------ param defs ---------------------------------
@@ -139,3 +140,99 @@ def mlp_defs(d: int, ff: int, act: str, bias: bool) -> dict:
         defs["b_up"] = ParamDef((ff,), init="zeros")
         defs["b_down"] = ParamDef((d,), init="zeros")
     return defs
+
+
+# ------------------------------ LM losses -----------------------------------
+
+def _chunks(x: torch.Tensor, labels: torch.Tensor, chunk: int):
+    """x (T, d) and labels (T,) padded to a multiple of ``chunk`` (labels
+    with -1, which count for nothing), split into token chunks."""
+    pad = (-x.shape[0]) % chunk
+    if pad:
+        x = F.pad(x, (0, 0, 0, pad))
+        labels = F.pad(labels, (0, pad), value=-1)
+    return zip(x.split(chunk), labels.split(chunk))
+
+
+def _label_logit(logits: torch.Tensor, lch: torch.Tensor) -> torch.Tensor:
+    """Each row's logit at its label (any value where the label is -1:
+    the caller weights those rows by 0)."""
+    return logits.gather(-1, lch.clamp_min(0)[:, None].long())[:, 0]
+
+
+def _chunk_nll(xch: torch.Tensor, head_w: torch.Tensor, lch: torch.Tensor,
+               logit_dtype: torch.dtype):
+    logits = (xch @ head_w).to(logit_dtype)
+    lse = torch.logsumexp(logits, dim=-1)
+    valid = (lch >= 0).float()
+    return ((lse - _label_logit(logits, lch)) * valid).sum(), valid.sum()
+
+
+def cross_entropy_chunked(x: torch.Tensor, head_w: torch.Tensor, labels: torch.Tensor,
+                          *, chunk: int = 4096,
+                          logit_dtype: torch.dtype = torch.float32) -> torch.Tensor:
+    """Causal-LM cross entropy without materialising the (T, V) logits.
+
+    x: (T, d) final hidden states; head_w: (d, V); labels: (T,) int, -1
+    for none.  Each token chunk's logits are formed, reduced to its summed
+    NLL and dropped; ``torch.utils.checkpoint`` rebuilds them chunk by
+    chunk in the backward pass (the reference's ``jax.checkpoint``), so
+    the peak is one chunk x V.  Returns the mean NLL over labelled tokens
+    (f32)."""
+    tot = torch.zeros((), dtype=torch.float32, device=x.device)
+    cnt = torch.zeros((), dtype=torch.float32, device=x.device)
+    for xch, lch in _chunks(x, labels, chunk):
+        s, c = checkpoint(_chunk_nll, xch, head_w, lch, logit_dtype, use_reentrant=False)
+        tot, cnt = tot + s, cnt + c
+    return tot / cnt.clamp_min(1.0)
+
+
+def _softmax_pieces(xch: torch.Tensor, head_w: torch.Tensor, lch: torch.Tensor):
+    """The chunk's f32 softmax, its summed NLL and the labelled-row mask."""
+    logits = (xch @ head_w).float()
+    m = logits.amax(-1, keepdim=True)
+    expl = torch.exp(logits - m)
+    sumexp = expl.sum(-1, keepdim=True)
+    lse = (m + torch.log(sumexp))[:, 0]
+    valid = (lch >= 0).float()
+    nll = ((lse - _label_logit(logits, lch)) * valid).sum()
+    return expl / sumexp, nll, valid
+
+
+class _FusedChunkNLL(torch.autograd.Function):
+    """One chunk's (summed NLL, label count) with the reference's
+    hand-written backward (``_fused_chunk_nll``): only (xch, head_w, lch)
+    are saved, the softmax is recomputed, and the two backward products
+    run in bf16 -- ``dlogits``, ``head_w`` and ``xch`` are cast to bf16 at
+    the reference's places, so the gradient rounds as the reference's does."""
+
+    @staticmethod
+    def forward(ctx, xch, head_w, lch):
+        _, nll, valid = _softmax_pieces(xch, head_w, lch)
+        ctx.save_for_backward(xch, head_w, lch)
+        return nll, valid.sum()
+
+    @staticmethod
+    def backward(ctx, g_nll, g_cnt):
+        xch, head_w, lch = ctx.saved_tensors
+        probs, _, valid = _softmax_pieces(xch, head_w, lch)
+        # probs - onehot(label) in place, the one-hot never built (rows
+        # labelled -1 add -0 and are zeroed by ``valid`` below)
+        rows = torch.arange(lch.shape[0], device=lch.device)
+        probs.index_put_((rows, lch.clamp_min(0).long()), -valid, accumulate=True)
+        dlogits = (probs * (valid * g_nll)[:, None]).to(torch.bfloat16)
+        dx = (dlogits @ head_w.to(torch.bfloat16).T).to(xch.dtype)
+        dW = (xch.to(torch.bfloat16).T @ dlogits).to(head_w.dtype)
+        return dx, dW, None
+
+
+def cross_entropy_fused(x: torch.Tensor, head_w: torch.Tensor, labels: torch.Tensor,
+                        *, chunk: int = 4096) -> torch.Tensor:
+    """``cross_entropy_chunked`` with the hand-written backward of
+    ``_FusedChunkNLL`` (the reference's ``opt_fused_ce`` path)."""
+    tot = torch.zeros((), dtype=torch.float32, device=x.device)
+    cnt = torch.zeros((), dtype=torch.float32, device=x.device)
+    for xch, lch in _chunks(x, labels, chunk):
+        s, c = _FusedChunkNLL.apply(xch, head_w, lch)
+        tot, cnt = tot + s, cnt + c
+    return tot / cnt.clamp_min(1.0)

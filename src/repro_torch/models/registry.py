@@ -13,20 +13,31 @@ The cache is {"pos": int, "groups": {slot: {"k", "v"}}}, each (G, B, T, KV,
 hd); prefill and decode write its tensors in place and return it with
 ``pos`` advanced.
 
+``loss`` is the training loss: the mean next-token NLL (chunked or fused
+cross entropy) plus ``AUX_LOSS_COEF`` times the MoE load-balance loss.
+With grad enabled and no cache, each layer group is re-materialised in
+the backward pass when ``cfg.remat`` is set.
+
 The SSM, RWKV and cross-attention mixers (the ssm, hybrid, vlm and encdec
-families), the encoder and the training loss are not ported yet: they
-raise ``NotImplementedError`` naming their ROADMAP item.
+families) and the encoder are not ported yet: they raise
+``NotImplementedError`` naming ROADMAP item 5.
 """
 
 from __future__ import annotations
 
+import contextvars
+
 import torch
+from torch.utils.checkpoint import checkpoint
 
 from repro_torch.core.blocks import resolve_device
 from repro_torch.models import attention as attn_lib
 from repro_torch.models import moe as moe_lib
-from repro_torch.models.layers import (ParamDef, mlp_apply, mlp_defs, norm,
+from repro_torch.models.layers import (ParamDef, cross_entropy_chunked,
+                                       cross_entropy_fused, mlp_apply, mlp_defs, norm,
                                        sinusoidal_positions, tree_init)
+
+AUX_LOSS_COEF = 0.01
 
 
 def _not_ported(what: str, item: str):
@@ -40,6 +51,9 @@ _MIXER_ITEMS = {"mamba": "item 5: models/ssm.py", "rwkv": "item 5: models/rwkv.p
 
 class Model:
     """Build with ``repro_torch.models.registry.build(cfg, device)``."""
+
+    #: tokens per cross-entropy chunk; None means min(4096, B * S)
+    ce_chunk: int | None = None
 
     def __init__(self, cfg, device: torch.device):
         self.cfg = cfg
@@ -123,20 +137,50 @@ class Model:
 
     def _run_groups(self, x, params, positions, cache, pos0):
         """The groups in order; group g reads the views ``leaf[g]`` of the
-        stacked parameters and cache."""
+        stacked parameters (made by one ``unbind`` a leaf: its backward
+        stacks the groups' gradients once, where indexing each group would
+        add G leaf-sized zero-filled tensors, O(G^2) traffic) and cache.
+
+        With ``cfg.remat``, grad enabled and no cache, each group runs under
+        ``torch.utils.checkpoint`` (the reference's ``jax.checkpoint`` of
+        its scan body): the backward pass recomputes it, so activations
+        stay about one group deep.  ``opt_seq_parallel`` and
+        ``opt_remat_save_tp`` only place shardings or name saved values in
+        the reference; on one card they change no value and are plain
+        remat here.  The recompute may run on autograd's device thread,
+        which does not see this thread's context variables (the coded
+        expert FFN's decode matrix), so both passes run in one copy of the
+        forward's context."""
+        def unbind(tree):
+            return {k: unbind(v) if isinstance(v, dict) else v.unbind(0)
+                    for k, v in tree.items()}
+
         def take(tree, g):
             return {k: take(v, g) if isinstance(v, dict) else v[g]
                     for k, v in tree.items()}
 
-        aux = torch.zeros((), dtype=torch.float32, device=x.device)
-        for g in range(self.cfg.num_groups):
-            p_g = take(params["groups"], g)
+        p_views = unbind(params["groups"])
+
+        def group(x, g):
+            p_g = take(p_views, g)
             c_g = take(cache["groups"], g) if cache is not None else None
+            aux = torch.zeros((), dtype=torch.float32, device=x.device)
             for s, (mixer, ffn) in enumerate(self.plan):
                 slot_c = c_g[f"slot{s}"] if c_g is not None else None
                 x, a = self._apply_slot(x, p_g[f"slot{s}"], mixer, ffn,
                                         positions, slot_c, pos0)
                 aux = aux + a
+            return x, aux
+
+        remat = self.cfg.remat and cache is None and torch.is_grad_enabled()
+        ctx = contextvars.copy_context() if remat else None
+        aux = torch.zeros((), dtype=torch.float32, device=x.device)
+        for g in range(self.cfg.num_groups):
+            if remat:
+                x, a = checkpoint(ctx.run, group, x, g, use_reentrant=False)
+            else:
+                x, a = group(x, g)
+            aux = aux + a
         return x, aux
 
     def _encode(self, params, frames):
@@ -184,9 +228,19 @@ class Model:
     def logits(self, params: dict, x: torch.Tensor) -> torch.Tensor:
         return (x @ self.head_weight(params)).float()
 
-    def loss(self, params, batch):
-        raise _not_ported("Model.loss (the cross-entropy functions)",
-                          "item 7: training")
+    def loss(self, params: dict, batch: dict) -> torch.Tensor:
+        """batch: tokens (B, S), labels (B, S) (-1: no label) -> the mean
+        NLL plus ``AUX_LOSS_COEF`` x the MoE aux loss, f32.  The fused
+        cross entropy with ``opt_fused_ce``, the chunked one otherwise,
+        over chunks of ``ce_chunk`` or min(4096, B * S) tokens."""
+        extras = {k: v for k, v in batch.items() if k in ("frames", "vision")}
+        x, aux, _ = self.forward(params, batch["tokens"], extras=extras)
+        B, S, d = x.shape
+        ce = cross_entropy_fused if self.cfg.opt_fused_ce else cross_entropy_chunked
+        labels = torch.as_tensor(batch["labels"], device=self.device).reshape(-1)
+        nll = ce(x.reshape(B * S, d), self.head_weight(params), labels,
+                 chunk=self.ce_chunk or min(4096, B * S))
+        return nll + AUX_LOSS_COEF * aux
 
     def prefill(self, params: dict, tokens, *, cache: dict | None = None,
                 max_seq: int | None = None,

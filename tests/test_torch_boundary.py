@@ -10,6 +10,9 @@
   ``ProcPool`` and ``MuxProcPool``), ``coded_matmul`` and the serving
   path's (``build``, ``generate``, ``ServingEngine``) unless given
   ``device="cpu"``;
+  and the training path's (``launch.train.main``, ``make_train_step``
+  over a model built with ``device=None``, ``save_coded_checkpoint``,
+  ``coded_aggregate``);
 * ``import repro_torch.serving`` loads neither the model nor torch;
 * a kernel wrapper given CPU tensors takes the plain version and never
   reaches the CUDA lane, while the CUDA wrapper refuses CPU tensors;
@@ -174,6 +177,50 @@ def test_serving_entry_points_without_cuda_raise_unless_asked_for_the_cpu(name):
     if torch.cuda.is_available():
         pytest.skip("a CUDA device is present: the card is meant to be used")
     call = _serving_calls()[name]
+    for device in (None, "cuda"):
+        with pytest.raises(RuntimeError, match="no CUDA device"):
+            call(device)
+    assert call("cpu") is not None
+
+
+def _training_calls(tmp):
+    """Each entry point of the training path, as a call taking ``device``."""
+    from repro_torch.configs import get
+    from repro_torch.launch import train
+    from repro_torch.models import build
+    from repro_torch.training import AdamW, coded_aggregate, make_train_step
+    from repro_torch.training.checkpoint import save_coded_checkpoint
+    from repro_torch.training.data import SyntheticCorpus
+
+    cfg = get("internlm2-1.8b").reduced()
+    params = build(cfg, "cpu").init()
+
+    def step(device):
+        model, opt = build(cfg, device), AdamW()
+        p = model.init()
+        return make_train_step(model, opt)(p, opt.init(p),
+                                           SyntheticCorpus(cfg, 1, 8).make_batch(0))
+
+    def cli(device):
+        argv = ["--arch", cfg.name.removesuffix("-reduced"), "--reduced", "--steps", "1",
+                "--batch", "1", "--seq", "8", "--ckpt-dir", str(tmp)]
+        return train.main(argv + ([] if device is None else ["--device", device]))
+
+    shards = [np.arange(10, dtype=np.float32), np.ones(10, np.float32)]
+    return {
+        "launch.train.main": cli,
+        "make_train_step": step,
+        "save_coded_checkpoint": lambda d: save_coded_checkpoint(tmp, 1, params, device=d),
+        "coded_aggregate": lambda d: coded_aggregate(shards, device=d),
+    }
+
+
+@pytest.mark.parametrize("name", ["launch.train.main", "make_train_step",
+                                  "save_coded_checkpoint", "coded_aggregate"])
+def test_training_entry_points_without_cuda_raise_unless_asked_for_the_cpu(name, tmp_path):
+    if torch.cuda.is_available():
+        pytest.skip("a CUDA device is present: the card is meant to be used")
+    call = _training_calls(tmp_path)[name]
     for device in (None, "cuda"):
         with pytest.raises(RuntimeError, match="no CUDA device"):
             call(device)

@@ -171,10 +171,15 @@ def test_families_not_ported_raise_naming_the_roadmap(name):
 
 
 def test_loss_and_extras_raise_naming_the_roadmap():
+    """The loss is ported (``test_torch_training.py``); a batch with the
+    vlm or encdec families' inputs still raises, naming item 5."""
     model = tbuild(tcfg.get("internlm2-1.8b").reduced(), "cpu")
     params = model.init()
-    with pytest.raises(NotImplementedError, match="ROADMAP queue 1, item 7"):
-        model.loss(params, {})
+    toks = torch.zeros(1, 4, dtype=torch.int32)
+    assert torch.isfinite(model.loss(params, {"tokens": toks, "labels": toks}))
+    with pytest.raises(NotImplementedError, match="ROADMAP queue 1, item 5"):
+        model.loss(params, {"tokens": toks, "labels": toks,
+                            "frames": torch.zeros(1, 2, 64)})
     with pytest.raises(NotImplementedError, match="ROADMAP queue 1"):
         model.forward(params, torch.zeros(1, 4, dtype=torch.int32),
                       extras={"vision": torch.zeros(1, 2, 64)})
