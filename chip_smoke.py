@@ -58,7 +58,17 @@ through a simulated failure and its resume, a coded checkpoint of one
 layer's parameters restored from all of its targets and from two thirds
 of them, and the coded expert FFN's gradients (qwen3-moe-30b-a3b, one
 layer, two workers dead) against the plain FFN's; it launches none of the
-kernels either.  Worker processes re-import this script: nothing at its
+kernels either.  ``families`` drives the four families with other mixers
+at their published widths: rwkv6-3b at full depth (one layer on the card
+against the CPU with its gradients, ``generate``, cached decode against
+one forward at f32 and bf16 caches, train steps), jamba-1.5-large-398b's
+mamba mixer alone at full width (card against CPU with gradients, its
+state-carrying decode against its forward) and the whole model at
+reduced() (card against CPU, and served with worker 0 dead),
+llama-3.2-vision-11b at full depth with image tokens and whisper-medium
+at full depth with frames (one layer group against the CPU, ``generate``,
+cached decode against one forward; whisper's train steps and its training
+CLI); it launches none of the kernels.  Worker processes re-import this script: nothing at its
 module level touches the card.
 Each phase prints one JSON line; the line before the last lists the
 kernels with their launches, times and bounds, and the last line is
@@ -1561,9 +1571,10 @@ def phase_serving(smi: str, dev: torch.device) -> None:
     emit(phase="serving", nvidia_smi=smi, seconds=time.perf_counter() - t_phase, **out)
 
 
-def _leaves(tree: dict):
-    for v in tree.values():
-        yield from (_leaves(v) if isinstance(v, dict) else (v,))
+def _leaves(tree):
+    """The tensors of a tree of dicts and lists (a mamba cache's)."""
+    for v in (tree.values() if isinstance(tree, dict) else tree):
+        yield from (_leaves(v) if isinstance(v, (dict, list)) else (v,))
 
 
 # ------------------------------- phase 8c -----------------------------------
@@ -1899,6 +1910,429 @@ def _flat_items(tree: dict, prefix: str = ""):
             yield f"{prefix}{k}", v
 
 
+# ------------------------------- phase 8d -----------------------------------
+# the four families ported last, at their published widths: rwkv6-3b (32
+# layers, d 2560, 40 heads of 64, d_ff 8960; full depth), the mamba mixer
+# of jamba-1.5-large-398b alone at its width (d 8192, d_inner 16,384,
+# d_state 16, d_conv 4, dt_rank 512; one of its layer groups holds four
+# MoE layers of 16 x 3 x 8192 x 24,576, about 155 GB in f32, which no
+# card holds) and the whole jamba at reduced(), llama-3.2-vision-11b (40
+# layers, d 4096, 32/8 heads, d_ff 14,336, 1601 image tokens; full depth)
+# and whisper-medium (24 encoder + 24 decoder layers, d 1024, 1500 frames;
+# full depth).  The memories (image tokens, frames) are unit normal stub
+# embeddings, as the configs' stubbed front ends leave them.
+FAM_RWKV, FAM_JAMBA = "rwkv6-3b", "jamba-1.5-large-398b"
+FAM_VLM, FAM_ENCDEC = "llama-3.2-vision-11b", "whisper-medium"
+FAM_CPU_SEQ = 128            # tokens of each card-vs-CPU check
+FAM_PROMPTS = {FAM_RWKV: 512, FAM_VLM: 256, FAM_ENCDEC: 64}
+FAM_NEW_TOKENS = 16
+FAM_TRAIN = {FAM_RWKV: (1, 512), FAM_ENCDEC: (2, 256)}  # batch, seq
+FAM_TRAIN_STEPS = 3
+FAM_MAMBA_PREFILL = 120      # of FAM_CPU_SEQ: the rest decoded one token a step
+FAM_SERVE_REQUESTS = 4
+FAM_CLI = ["--layers", "2", "--steps", "3", "--batch", "2", "--seq", "128", "--ckpt-every", "0"]
+# logits (card vs CPU, cached decode vs one forward) within 1e-4 of the
+# reference's max|logit|, and each gradient leaf within 1e-4 of its
+# largest magnitude: f32 products summed in other orders (and the scans'
+# f32 recurrences), a few layers deep, round near 1e-6 of the scale; bf16
+# anywhere would miss by an order of magnitude.  A key bias's gradient is
+# 0 in exact arithmetic (the softmax ignores a shift shared by every key):
+# it is held within 1e-4 of the tree's largest gradient instead.
+FAM_RTOL = 1e-4
+# rwkv6-3b at its init is ill-conditioned in f32: at position 0 the scan's
+# state is empty and u is small, so a head's output is a sum of 64 terms
+# that nearly cancel (its mean square 3e-6 to 1e-4, where other positions
+# reach 40), and the per-head normalisation scales that rounding up to the
+# output's size; over the layers its f32 forward departs from an f64 one
+# by 1.3e-4 of max|logit| at 4 layers on a CPU.  So where the model's f64
+# copy fits (FAM_F64_BYTES), its cached decode is held to its forward in
+# f64 within FAM_F64_RTOL (f64 rounding, with the same amplification),
+# and the f32 decode within FAM_RTOL plus twice the f32 forward's
+# distance from the f64 forward, measured on the same tokens in the run.
+FAM_F64_RTOL, FAM_F64_BYTES = 1e-9, 30e9
+
+
+def _memory(cfg, batch: int, dev, seed: int = SEED) -> dict:
+    """The family's stub memory as unit normal embeddings: ``vision`` (vlm)
+    or ``frames`` (encdec); none for the others."""
+    gen = torch.Generator(device=dev).manual_seed(seed)
+    if cfg.family == "vlm":
+        return {"vision": torch.randn((batch, cfg.vision_tokens, cfg.d_model),
+                                      generator=gen, device=dev)}
+    if cfg.family == "encdec":
+        return {"frames": torch.randn((batch, cfg.encoder_seq, cfg.d_model),
+                                      generator=gen, device=dev)}
+    return {}
+
+
+def _prompt(cfg, batch: int, seq: int, dev, seed: int = SEED) -> torch.Tensor:
+    rng = np.random.default_rng(seed)
+    return torch.from_numpy(rng.integers(0, cfg.vocab_size, (batch, seq)).astype(np.int32)).to(dev)
+
+
+def _grad_errs(got: dict, want: dict) -> dict:
+    """Each gradient leaf's max|got - want| over its largest magnitude
+    (a key bias's over the tree's largest gradient): the worst three."""
+    g_items, w_items = list(_flat_items(got)), list(_flat_items(want))
+    largest = max(float(w.abs().max()) for _, w in w_items)
+    rows = []
+    for (k, g), (k2, w) in zip(g_items, w_items, strict=True):
+        check(k == k2, f"families: gradient trees differ at {k} / {k2}")
+        w = w.float().cpu()
+        err = float((g.float().cpu() - w).abs().max())
+        scale = largest if k.endswith("/bk") else max(float(w.abs().max()), 1e-30)
+        rows.append((err / scale, k))
+    return {"worst": [{"leaf": k, "rel": e} for e, k in sorted(rows, reverse=True)[:3]],
+            "max_rel": max(e for e, _ in rows), "leaves": len(rows)}
+
+
+def _cached_vs_forward(model, params, prompt, steps: int, extras: dict, cache_dtype,
+                       dev, feed: list | None = None) -> tuple[dict, torch.Tensor]:
+    """Prefill ``prompt`` (with the memory), ``steps`` decode steps (greedy,
+    or feeding the tokens ``feed``), then one forward over the same
+    tokens: the logits' error relative to the forward's max|logit|, the
+    tokens, and the prefill's and a decode step's host-clock times (each
+    ending in a synchronise); and the forward's logits at the decoded
+    positions, on the host."""
+    from repro_torch.core.blocks import synchronize
+
+    P = prompt.shape[1]
+    with torch.no_grad():
+        synchronize(dev)
+        t0 = time.perf_counter()
+        logits, cache = model.prefill(params, prompt, extras=extras, max_seq=P + steps,
+                                      cache_dtype=cache_dtype)
+        synchronize(dev)
+        prefill_ms = (time.perf_counter() - t0) * 1e3
+        out, toks = [logits[:, -1].cpu()], []
+        t0 = time.perf_counter()
+        for i in range(steps):
+            tok = (torch.argmax(logits[:, -1], -1).to(torch.int32)[:, None] if feed is None
+                   else torch.tensor([[feed[i]]], dtype=torch.int32, device=prompt.device))
+            toks.append(tok)
+            logits, cache = model.decode_step(params, cache, tok)
+            out.append(logits[:, -1].cpu())
+        synchronize(dev)
+        decode_ms = (time.perf_counter() - t0) * 1e3 / steps
+        states = sorted({str(t.dtype).removeprefix("torch.") for t in _leaves(cache["groups"])})
+        del cache
+        x, _, _ = model.forward(params, torch.cat([prompt, *toks], 1), extras=extras)
+        full = model.logits(params, x[:, P - 1:]).cpu()
+    err = _logit_err(torch.stack(out, 1), full)
+    return {"prompt": P, "steps": steps, "cache_dtype": str(cache_dtype).removeprefix("torch."),
+            "logits_err": err, "prefill_ms": prefill_ms, "decode_ms_per_token": decode_ms,
+            "cache_dtypes_after": states, "tokens": torch.cat(toks, 1)[0].tolist()}, full
+
+
+def _family_vs_cpu(cfg, dev, seq: int, grads: bool) -> dict:
+    """``cfg`` (cut in depth) on the card and on the CPU with the same
+    weights: the logits of one forward over a ``seq``-token prompt (with
+    the memory), and where ``grads`` is set the loss and every gradient
+    leaf on a ``SyntheticCorpus`` batch."""
+    from repro_torch.models import build
+    from repro_torch.training.data import SyntheticCorpus
+    from repro_torch.training.train_step import value_and_grad
+
+    card, host = build(cfg, dev), build(cfg, "cpu")
+    p_card = card.init(SEED)
+    p_host = _tree_to(p_card, "cpu")
+    prompt, mem = _prompt(cfg, 1, seq, dev), _memory(cfg, 1, dev)
+    t0 = time.perf_counter()
+    with torch.no_grad():
+        x, _, _ = host.forward(p_host, prompt.cpu(), extras=_tree_to(mem, "cpu"))
+        want = host.logits(p_host, x)
+        cpu_s = time.perf_counter() - t0
+        got = card.logits(p_card, card.forward(p_card, prompt, extras=mem)[0]).cpu()
+    out = {"layers": cfg.num_layers, "tokens": seq, "logits_err": _logit_err(got, want)}
+    if cfg.encoder_layers:
+        out["encoder_layers"] = cfg.encoder_layers
+    check(out["logits_err"] <= FAM_RTOL, f"families: {cfg.name} card vs CPU logits {out}")
+    if grads:
+        batch = SyntheticCorpus(cfg, 1, seq, seed=SEED).make_batch(0)
+        t0 = time.perf_counter()
+        loss_h, g_host = value_and_grad(host, p_host, batch)
+        cpu_s += time.perf_counter() - t0
+        loss_c, g_card = value_and_grad(card, p_card, batch)
+        out["loss_rel"] = abs(float(loss_c) - float(loss_h)) / abs(float(loss_h))
+        out["grads"] = _grad_errs(g_card, g_host)
+        check(out["loss_rel"] <= FAM_RTOL and out["grads"]["max_rel"] <= FAM_RTOL,
+              f"families: {cfg.name} card vs CPU loss/gradients {out}")
+    out["cpu_s"] = cpu_s
+    return out
+
+
+def _family_train(cfg, dev, batch: int, seq: int) -> dict:
+    """``FAM_TRAIN_STEPS`` train steps (AdamW at the CLI's rate) on
+    ``SyntheticCorpus`` batches: each step's loss, gradient norm and time,
+    tokens/s after the first, peak memory."""
+    from repro_torch.core.blocks import synchronize
+    from repro_torch.models import build
+    from repro_torch.training import AdamW, cosine_warmup_schedule, make_train_step
+    from repro_torch.training.data import SyntheticCorpus
+
+    torch.cuda.reset_peak_memory_stats()
+    model = build(cfg, dev)
+    params = model.init(SEED)
+    opt = AdamW(lr=cosine_warmup_schedule(TRAIN_LR, TRAIN_WARMUP, FAM_TRAIN_STEPS))
+    state = opt.init(params)
+    step = make_train_step(model, opt)
+    corpus = SyntheticCorpus(cfg, batch, seq, seed=SEED)
+    rows = []
+    for i in range(FAM_TRAIN_STEPS):
+        b = corpus.make_batch(i)
+        synchronize(dev)
+        t0 = time.perf_counter()
+        params, state, met = step(params, state, b)
+        loss, gnorm = float(met["loss"]), float(met["grad_norm"])
+        rows.append({"step": i, "loss": loss, "grad_norm": gnorm, "s": time.perf_counter() - t0})
+        print(f"families train {cfg.name} step {i}: {rows[-1]}", flush=True)
+    ln_v = math.log(cfg.vocab_size)
+    check(all(math.isfinite(r["loss"]) and math.isfinite(r["grad_norm"]) for r in rows)
+          and abs(rows[0]["loss"] - ln_v) <= TRAIN_LOSS0_ATOL
+          and all(torch.isfinite(t).all() for t in _leaves(params)),
+          f"families: {cfg.name} train steps {rows} (ln V = {ln_v})")
+    step_s = statistics.median(r["s"] for r in rows[1:])
+    n = sum(t.numel() for t in _leaves(params))
+    return {"batch": batch, "seq": seq, "params": n, "steps": rows,
+            "step_s_median_after_first": step_s, "tokens_per_s": batch * seq / step_s,
+            "peak_allocated_bytes": torch.cuda.max_memory_allocated(), "params_bytes": 4 * n,
+            "ln_vocab": ln_v}
+
+
+def _family_full(cfg, dev, P: int, out: dict) -> None:
+    """At full width and depth: ``generate`` (the default bf16 cache) on
+    the family's prompt with its memory, then cached decode (f32 cache, and
+    a bf16 one for the attention-free family) against one forward over
+    the same tokens; each time beside the weights' traffic at 3.35 TB/s.
+    ``P``: the prompt's tokens."""
+    from repro_torch.core.blocks import synchronize
+    from repro_torch.models import build
+    from repro_torch.serving import generate
+    from repro_torch.training.tree import tree_map
+
+    torch.cuda.reset_peak_memory_stats()
+    model = build(cfg, dev)
+    params = model.init(SEED)
+    n = sum(t.numel() for t in _leaves(params))
+    prompt, mem = _prompt(cfg, 1, P, dev), _memory(cfg, 1, dev)
+    gen = lambda: generate(model, params, prompt, steps=FAM_NEW_TOKENS,  # noqa: E731
+                           max_seq=P + FAM_NEW_TOKENS, extras=mem)
+    with torch.no_grad():
+        toks = gen()
+        synchronize(dev)
+        t0 = time.perf_counter()
+        toks = gen()
+        synchronize(dev)
+        gen_s = time.perf_counter() - t0
+    check(toks.shape == (1, FAM_NEW_TOKENS), f"families: {cfg.name} generate gave {toks.shape}")
+    # a decode step reads every weight but the encoder's and the embedding
+    # table's (one row of it): their bytes over the card's memory rate;
+    # a prefill does 2 flops a weight a token on top
+    read = sum(t.numel() for k, t in _flat_items(params)
+               if k != "embed" and not k.startswith("enc"))
+    out["params"] = n
+    out["decode_weights_bytes"] = 4 * read
+    out["weight_traffic_bound_ms"] = 4 * read / HBM_BYTES_PER_S * 1e3
+    out["prefill_flop_bound_ms"] = 2 * read * P / F32_FLOP_PER_S * 1e3
+    out["generate"] = {"prompt": P, "new_tokens": FAM_NEW_TOKENS, "s": gen_s,
+                       "tokens": toks[0].tolist()}
+    rows, full = [], None
+    for cache_dtype in ((torch.float32, torch.bfloat16) if cfg.rwkv else (torch.float32,)):
+        row, f = _cached_vs_forward(model, params, prompt, FAM_NEW_TOKENS, mem, cache_dtype, dev)
+        rows.append(row)
+        full = f if full is None else full
+        print(f"families {cfg.name}: {row} (weights {out['weight_traffic_bound_ms']:.2f} ms)",
+              flush=True)
+    limit = FAM_RTOL
+    if 8 * n <= FAM_F64_BYTES:
+        # the same decode and forward in f64 (feeding the f32 run's tokens):
+        # they agree to f64 rounding, and the f32 forward's distance from
+        # the f64 one is what f32 rounding does to this model's logits; two
+        # f32 evaluations may be twice that apart
+        p64 = tree_map(torch.Tensor.double, params)
+        del params
+        torch.cuda.empty_cache()
+        exact, full64 = _cached_vs_forward(model, p64, prompt, FAM_NEW_TOKENS,
+                                           {k: v.double() for k, v in mem.items()},
+                                           torch.float64, dev, feed=rows[0]["tokens"])
+        f32_err = _logit_err(full.double(), full64)
+        limit = FAM_RTOL + 2 * f32_err
+        out["f64"] = {"cached_vs_forward_err": exact["logits_err"], "rtol": FAM_F64_RTOL,
+                      "f32_forward_vs_f64": f32_err, "prefill_ms": exact["prefill_ms"],
+                      "decode_ms_per_token": exact["decode_ms_per_token"]}
+        check(exact["logits_err"] <= FAM_F64_RTOL,
+              f"families: {cfg.name} f64 cached decode vs forward {out['f64']}")
+        del p64
+    for row in rows:
+        row["limit"] = limit
+        check(row["logits_err"] <= limit, f"families: {cfg.name} cached decode vs forward "
+                                          f"{row} (limit {limit})")
+    out["cached_vs_forward"] = rows
+    out["peak_allocated_bytes"] = torch.cuda.max_memory_allocated()
+    del model
+    torch.cuda.empty_cache()
+
+
+def _mamba_mixer(cfg, dev) -> dict:
+    """The mamba mixer alone at ``cfg``'s width: forward and every
+    gradient (a fixed random cotangent) on the card against the CPU, and
+    the state-carrying decode against the forward."""
+    from repro_torch.models import ssm
+    from repro_torch.models.layers import tree_init
+
+    gen = torch.Generator(device=dev).manual_seed(SEED)
+    p = tree_init(ssm.mamba_defs(cfg), gen, torch.float32, dev)
+    for k in ("A_log", "dt_bias", "conv_b", "D"):  # zeros and ones at init: make them count
+        p[k] = p[k] + 0.1 * torch.randn(p[k].shape, generator=gen, device=dev)
+    x = torch.randn((1, FAM_CPU_SEQ, cfg.d_model), generator=gen, device=dev)
+    cot = torch.randn((1, FAM_CPU_SEQ, cfg.d_model), generator=gen, device=dev)
+
+    def run(p_, x_, cot_):
+        live = {k: v.detach().requires_grad_() for k, v in p_.items()}
+        xin = x_.detach().requires_grad_()
+        y, _ = ssm.mamba_apply(xin, live, cfg)
+        grads = torch.autograd.grad((y * cot_).sum(), [xin, *live.values()])
+        return y.detach(), dict(zip(["x", *live], grads))
+
+    y_c, g_c = run(p, x, cot)
+    t0 = time.perf_counter()
+    y_h, g_h = run(_tree_to(p, "cpu"), x.cpu(), cot.cpu())
+    cpu_s = time.perf_counter() - t0
+    di, dt_rank, ds, dc = ssm._dims(cfg)
+    out = {"d_model": cfg.d_model, "d_inner": di, "d_state": ds, "d_conv": dc,
+           "dt_rank": dt_rank, "tokens": FAM_CPU_SEQ, "cpu_s": cpu_s,
+           "out_err": _logit_err(y_c.cpu(), y_h), "grads": _grad_errs(g_c, g_h)}
+    with torch.no_grad():
+        state = ssm.mamba_init_state(cfg, 1, torch.float32, dev)
+        ys, state = ssm.mamba_apply(x[:, :FAM_MAMBA_PREFILL], p, cfg, state=state)
+        steps = [ys]
+        for t in range(FAM_MAMBA_PREFILL, FAM_CPU_SEQ):
+            y_t, state = ssm.mamba_apply(x[:, t:t + 1], p, cfg, state=state)
+            steps.append(y_t)
+    out["decode_vs_forward_err"] = _logit_err(torch.cat(steps, 1).cpu(), y_c.cpu())
+    out["decoded_steps"] = FAM_CPU_SEQ - FAM_MAMBA_PREFILL
+    check(out["out_err"] <= FAM_RTOL and out["grads"]["max_rel"] <= FAM_RTOL
+          and out["decode_vs_forward_err"] <= FAM_RTOL, f"families: mamba mixer {out}")
+    return out
+
+
+def _jamba_reduced(dev) -> dict:
+    """The whole jamba at reduced() on the card against the CPU: forward
+    logits, cached decode, loss and gradients, and ``ServingEngine``
+    (coded expert jobs, worker 0 dead) with the CPU's outcomes."""
+    from repro_torch import configs
+    from repro_torch.models import build
+    from repro_torch.serving import ServingEngine, TenantSpec, poisson_trace
+
+    cfg = configs.get(FAM_JAMBA).reduced()
+    out = {"reduced": _family_vs_cpu(cfg, dev, 16, grads=True)}
+    params = build(cfg, dev).init(SEED)
+    rows = {}
+    for name, where, p in (("card", dev, params), ("cpu", torch.device("cpu"),
+                                                   _tree_to(params, "cpu"))):
+        row, _ = _cached_vs_forward(build(cfg, where), p, _prompt(cfg, 2, 8, where), 4, {},
+                                    torch.float32, where)
+        check(row["logits_err"] <= FAM_RTOL, f"families: reduced jamba {name} decode {row}")
+        rows[name] = row
+    check(rows["card"]["tokens"] == rows["cpu"]["tokens"], f"families: reduced jamba {rows}")
+    out["cached_vs_forward"] = rows
+    trace = lambda: poisson_trace([TenantSpec("a", rate=60.0, prompt_len=5,  # noqa: E731
+                                              max_new_tokens=4)],
+                                  horizon=0.1, seed=9, max_requests=FAM_SERVE_REQUESTS)
+    served = {}
+    for name, where, p in (("card", dev, params), ("cpu", "cpu", _tree_to(params, "cpu"))):
+        with ServingEngine(cfg, coded=True, num_workers=6, source="sim", dead_workers=(0,),
+                           unit_block_time=1e-3, max_batch=2, max_seq=16, device=where,
+                           params=p) as eng:
+            m = eng.run(trace())
+        served[name] = sorted((r.rid, r.tokens, r.completed, r.error, r.straggler_recoveries)
+                              for r in m.requests)
+    s = served["card"]
+    check(s == served["cpu"] and all(r[2] for r in s) and all(r[4] >= 1 for r in s),
+          f"families: reduced jamba engine card {s} vs CPU {served['cpu']}")
+    out["engine"] = {"requests": len(s), "dead_workers": [0],
+                     "outcomes": [{"rid": r[0], "tokens": r[1], "recoveries": r[4]} for r in s]}
+    return out
+
+
+def phase_families(smi: str, dev: torch.device) -> None:
+    """The rwkv, hybrid (mamba), vlm (cross-attention) and encdec (encoder)
+    families on the card.  rwkv6-3b: one layer card vs CPU (logits and
+    gradients), ``generate``, cached decode vs forward at f32 and bf16
+    caches, train steps at full depth.  jamba: the mamba mixer at full
+    width card vs CPU with gradients and its decode vs its forward; the
+    whole model at reduced() card vs CPU, and served.
+    llama-3.2-vision-11b: one layer group card vs CPU, ``generate`` with
+    image tokens, cached decode vs forward.  whisper-medium: one encoder
+    and one decoder layer card vs CPU with gradients, ``generate`` with
+    frames, cached decode vs forward, train steps at full depth, the
+    training CLI two decoder layers deep.  None launches a kernel of the
+    table: the scans are loops of torch operations over time."""
+    import shutil
+    import tempfile
+
+    from repro_torch import configs
+
+    t_phase = time.perf_counter()
+    out: dict = {"part_seconds": {}}
+
+    def part(name: str, fn) -> None:
+        t0 = time.perf_counter()
+        out[name] = fn()
+        out["part_seconds"][name] = time.perf_counter() - t0
+        torch.cuda.empty_cache()
+        print(f"families {name}: {out['part_seconds'][name]:.1f} s", flush=True)
+
+    def full(name):
+        row = {}
+        _family_full(configs.get(name), dev, FAM_PROMPTS[name], row)
+        return row
+
+    rwkv, vlm, encdec = (configs.get(n) for n in (FAM_RWKV, FAM_VLM, FAM_ENCDEC))
+    part("rwkv_vs_cpu", lambda: _family_vs_cpu(dataclasses.replace(rwkv, num_layers=1), dev,
+                                               FAM_CPU_SEQ, grads=True))
+    part("rwkv", lambda: full(FAM_RWKV))
+    part("rwkv_train", lambda: _family_train(rwkv, dev, *FAM_TRAIN[FAM_RWKV]))
+    part("mamba_mixer", lambda: _mamba_mixer(configs.get(FAM_JAMBA), dev))
+    part("jamba_reduced", lambda: _jamba_reduced(dev))
+    part("vlm_vs_cpu", lambda: _family_vs_cpu(
+        dataclasses.replace(vlm, num_layers=vlm.group_size), dev, FAM_CPU_SEQ // 2, grads=False))
+    part("vlm", lambda: full(FAM_VLM))
+    part("encdec_vs_cpu", lambda: _family_vs_cpu(
+        dataclasses.replace(encdec, num_layers=1, encoder_layers=1), dev, FAM_CPU_SEQ,
+        grads=True))
+    part("encdec", lambda: full(FAM_ENCDEC))
+    part("encdec_train", lambda: _family_train(encdec, dev, *FAM_TRAIN[FAM_ENCDEC]))
+
+    def cli():
+        import os
+
+        ckpt = tempfile.mkdtemp(prefix="chip_smoke_families_")
+        try:
+            cmd = [sys.executable, "-m", "repro_torch.launch.train", "--arch", FAM_ENCDEC,
+                   *FAM_CLI, "--ckpt-dir", ckpt,
+                   *([] if dev.type == "cuda" else ["--device", "cpu"])]
+            env = dict(os.environ, PYTHONPATH=str(ROOT / "src"))
+            proc = subprocess.run(cmd, capture_output=True, text=True, env=env,
+                                  timeout=TRAIN_CLI_TIMEOUT_S)
+        finally:
+            shutil.rmtree(ckpt, ignore_errors=True)
+        text = proc.stdout + proc.stderr
+        check(proc.returncode == 0 and "done: 3 steps" in text,
+              f"families: the whisper CLI exited {proc.returncode}: {text[-2000:]}")
+        return {"args": FAM_CLI, "lines": [ln for ln in text.splitlines()
+                                           if ln.startswith("[train]")]}
+
+    part("encdec_cli", cli)
+    out["limits"] = {"rtol": FAM_RTOL, "loss0_atol": TRAIN_LOSS0_ATOL}
+    out["reduced"] = {FAM_JAMBA: "the mamba mixer alone at full width; the model at reduced()",
+                      FAM_VLM: f"card vs CPU at {vlm.group_size} of {vlm.num_layers} layers",
+                      FAM_ENCDEC: "card vs CPU at 1 + 1 layers; the CLI at 2 decoder layers",
+                      FAM_RWKV: "card vs CPU at 1 of 32 layers"}
+    print(smi, flush=True)
+    emit(phase="families", nvidia_smi=smi, seconds=time.perf_counter() - t_phase, **out)
+
+
 # ------------------------------- phase 9 ------------------------------------
 
 def _counted(fn):
@@ -2221,9 +2655,13 @@ def main() -> int:
     torch.cuda.empty_cache()
     _, by_path["train"] = _counted(lambda: phase_train(info["nvidia_smi"], torch.device("cuda", 0)))
     torch.cuda.empty_cache()
+    _, by_path["families"] = _counted(
+        lambda: phase_families(info["nvidia_smi"], torch.device("cuda", 0)))
+    torch.cuda.empty_cache()
     _, by_path["proc_job"] = _counted(lambda: phase_proc_job(paper))
     _, by_path["proc_mux"] = _counted(lambda: phase_proc_mux(paper))
-    for path in ("schemes", "serving", "train", "proc_job", "proc_mux"):  # they run none of the kernels
+    for path in ("schemes", "serving", "train", "families", "proc_job",
+                 "proc_mux"):  # they run none of the kernels
         check(not any(by_path[path].values()), f"{path} launched {by_path[path]}")
     for row in kernels:  # each path's counts, read on their own, and their sum
         row["launches_by_path"] = {"main": row["launches"], **{

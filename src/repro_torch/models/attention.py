@@ -1,9 +1,11 @@
-"""GQA self-attention with RoPE, optional QKV biases and a KV cache.
+"""GQA attention (self and cross) with RoPE, optional QKV biases and a KV
+cache.
 
-The scores and the softmax run in f32 and are cast back to the query's
-dtype; masked scores are ``NEG_INF`` (not -inf), as in the JAX package, so
+The scores and the softmax run in f32 (f64 for f64 queries) and are cast
+back to the query's dtype; masked scores are ``NEG_INF`` (not -inf), as in the JAX package, so
 a fully masked row stays finite.  Cross-attention (the vlm and encdec
-families) is not ported yet (ROADMAP queue 1).
+families) attends, unmasked and without RoPE, over a memory: image tokens
+or the encoder's output.
 """
 
 from __future__ import annotations
@@ -17,7 +19,9 @@ from repro_torch.models.layers import ParamDef, apply_rope
 NEG_INF = -2.0 ** 30
 
 
-def attn_defs(cfg) -> dict:
+def attn_defs(cfg, cross: bool = False) -> dict:
+    """The projections of one attention block; ``cross`` changes nothing
+    (the JAX package takes and ignores it too)."""
     d, hd = cfg.d_model, cfg.hd
     H, KV = cfg.num_heads, cfg.num_kv_heads
     defs = {
@@ -33,8 +37,16 @@ def attn_defs(cfg) -> dict:
     return defs
 
 
+def _mm(x: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
+    """x @ w in the promoted dtype of the two, as JAX's einsum computes it
+    (a cross-attention memory, or a cache, need not be in the weights'
+    dtype)."""
+    dt = torch.promote_types(x.dtype, w.dtype)
+    return x.to(dt) @ w.to(dt)
+
+
 def _project(x: torch.Tensor, p: dict, cfg, heads: int, name: str) -> torch.Tensor:
-    out = x @ p[f"w{name}"]
+    out = _mm(x, p[f"w{name}"])
     if cfg.qkv_bias and name in ("q", "k", "v"):
         out = out + p[f"b{name}"]
     return out.reshape(*out.shape[:-1], heads, cfg.hd)
@@ -50,7 +62,8 @@ def _sdpa(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     dt = torch.promote_types(q.dtype, k.dtype)
     q, k, v = q.to(dt), k.to(dt), v.to(dt)
     qg = q.reshape(B, S, KV, H // KV, hd)
-    scores = torch.einsum("bskrh,btkh->bkrst", qg, k).float()
+    scores = torch.einsum("bskrh,btkh->bkrst", qg, k)
+    scores = scores.to(torch.promote_types(scores.dtype, torch.float32))
     scores = scores / math.sqrt(hd)
     if mask is not None:
         scores = torch.where(mask, scores, NEG_INF)
@@ -106,4 +119,25 @@ def self_attention(x: torch.Tensor, p: dict, cfg, positions: torch.Tensor, *,
         mask = None
 
     out = _sdpa(q, k, v, mask)
-    return out.reshape(B, S, -1) @ p["wo"]
+    return _mm(out.reshape(B, S, -1), p["wo"])
+
+
+def cross_attention(x: torch.Tensor, memory: torch.Tensor | None, p: dict, cfg, *,
+                    mem_kv: tuple | None = None):
+    """x: (B,S,d) queries; memory: (B,M,d) (the encoder's output or image
+    tokens) -> (out (B,S,d), (k, v)).  ``mem_kv``: the memory's k/v made
+    before (a decode step reuses the prefill's); the k/v used are
+    returned either way.  No mask and no RoPE.  With neither a memory nor
+    its k/v it raises ``ValueError``, as the reference's einsum does."""
+    q = _project(x, p, cfg, cfg.num_heads, "q")
+    if mem_kv is None:
+        if memory is None:
+            raise ValueError("cross-attention needs a memory (the vlm family's "
+                             "'vision' or the encdec family's 'frames') or its k/v")
+        k = _project(memory, p, cfg, cfg.num_kv_heads, "k")
+        v = _project(memory, p, cfg, cfg.num_kv_heads, "v")
+    else:
+        k, v = mem_kv
+    out = _sdpa(q, k, v)
+    B, S = x.shape[:2]
+    return _mm(out.reshape(B, S, -1), p["wo"]), (k, v)

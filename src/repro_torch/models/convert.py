@@ -1,10 +1,13 @@
 """Carry a model's weights across from plain arrays.
 
 The JAX package's parameter tree -- ``embed``, ``final_norm``, ``head``
-(untied only) and ``groups/slot{s}/{norm1, norm2, mixer, ffn}``, each slot
-leaf stacked over ``num_groups`` -- is the port's own layout
-(``models.registry``), so the carry is a name-for-name copy, checked leaf
-by leaf against the model's parameter defs.  Only plain arrays cross:
+(untied only), ``groups/slot{s}/{norm1, norm2, mixer, ffn}`` (``cross``
+and ``norm_x`` too in an encoder-decoder), each slot leaf stacked over
+``num_groups``, and an encoder-decoder's ``encoder`` (stacked over its
+layers) and ``enc_final_norm`` -- is the port's own layout
+(``models.registry``), whatever the mixers (attention, mamba, rwkv and
+its channel mix), so the carry is a name-for-name copy, checked leaf by
+leaf against the model's parameter defs.  Only plain arrays cross:
 nothing of the JAX package is imported.
 """
 

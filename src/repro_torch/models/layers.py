@@ -1,7 +1,8 @@
 """Shared model layers: parameter defs, norms, activations, RoPE, the MLP.
 
 Plain functions on tensors, computing what the JAX package's layers compute
-in the same dtypes: the norms reduce in f32 and cast back before the scale,
+in the same dtypes: the norms reduce in f32 (f64 for an f64 input) and
+cast back before the scale,
 RoPE rotates halves (not pairs) in f32, and ``gelu`` is the tanh form.  The
 two causal-LM cross-entropy functions (``cross_entropy_chunked`` and
 ``cross_entropy_fused``) scan token chunks and never hold the (T, V) logits.
@@ -57,13 +58,18 @@ def tree_init(defs: dict, generator: torch.Generator, dtype: torch.dtype,
 
 # ------------------------------- norms -------------------------------------
 
+def _acc(x: torch.Tensor) -> torch.Tensor:
+    """x in f32, or in f64 where it is f64: the dtype the reductions run in."""
+    return x.to(torch.promote_types(x.dtype, torch.float32))
+
+
 def rmsnorm(x: torch.Tensor, scale: torch.Tensor, eps: float = 1e-6) -> torch.Tensor:
-    var = x.float().square().mean(-1, keepdim=True)
+    var = _acc(x).square().mean(-1, keepdim=True)
     return (x * torch.rsqrt(var + eps)).to(x.dtype) * scale
 
 
 def layernorm(x: torch.Tensor, scale: torch.Tensor, eps: float = 1e-5) -> torch.Tensor:
-    xf = x.float()
+    xf = _acc(x)
     mu = xf.mean(-1, keepdim=True)
     var = (xf - mu).square().mean(-1, keepdim=True)
     return ((xf - mu) * torch.rsqrt(var + eps)).to(x.dtype) * scale

@@ -88,9 +88,11 @@ class ServingEngine:
                              f"engine on {self.device}")
 
         # host mirrors (float64) for routing and the exactness checks: group
-        # 0 of the first MoE slot (slot params are stacked over groups)
+        # 0 of the first MoE slot (slot params are stacked over groups).  The
+        # reference takes the first slot whose FFN has a ``w_gate``, which in
+        # a hybrid (jamba: a dense SwiGLU slot first) is no MoE, and fails
         ffn = next(p["ffn"] for p in self.params["groups"].values()
-                   if "w_gate" in p["ffn"])
+                   if "router" in p["ffn"])
         self._router = _host_f64(ffn["router"][0])               # (d, E)
         self._w_gate = _host_f64(ffn["w_gate"][0])               # (E, d, ff)
         self._embed = _host_f64(self.params["embed"])            # (V, d)

@@ -13,8 +13,11 @@ import torch
 
 
 def make_prefill_step(model, max_seq: int, cache_dtype=torch.bfloat16):
+    """prefill_step(params, batch): ``batch`` holds ``tokens`` and, for the
+    encdec and vlm families, ``frames`` or ``vision``."""
     def prefill_step(params, batch):
-        return model.prefill(params, batch["tokens"], max_seq=max_seq,
+        extras = {k: v for k, v in batch.items() if k in ("frames", "vision")}
+        return model.prefill(params, batch["tokens"], extras=extras, max_seq=max_seq,
                              cache_dtype=cache_dtype)
     return prefill_step
 
@@ -49,15 +52,16 @@ def cached_decode_step(model, temperature: float = 0.0):
 
 
 def generate(model, params, prompt, *, steps: int, max_seq: int,
-             temperature: float = 0.0, rng: torch.Generator | None = None,
+             temperature: float = 0.0, extras=None, rng: torch.Generator | None = None,
              cache_dtype=torch.bfloat16) -> torch.Tensor:
     """Greedy/temperature generation on the model's device (the device
     ``build`` was given: None there means the CUDA card).  prompt: (B, S)
     token ids -> (B, steps) int32; the first token is the prefill's argmax.
-    ``rng`` defaults to a generator on that device seeded with 0."""
+    ``extras`` (``frames`` or ``vision``) go to the prefill.  ``rng``
+    defaults to a generator on that device seeded with 0."""
     if rng is None:
         rng = torch.Generator(device=model.device).manual_seed(0)
-    logits, cache = model.prefill(params, prompt, max_seq=max_seq,
+    logits, cache = model.prefill(params, prompt, extras=extras, max_seq=max_seq,
                                   cache_dtype=cache_dtype)
     decode = cached_decode_step(model, temperature)
     tok = torch.argmax(logits[:, -1], dim=-1).to(torch.int32)[:, None]

@@ -3,14 +3,19 @@
 * the two config registries hold the same names, fields and derived sizes;
 * the layers (norms in f32 and bf16, activations, RoPE, sinusoidal
   positions) and the ``ParamDef`` init rule;
-* every dense and MoE family at its ``reduced()`` size, on the JAX
-  package's own parameters carried across by ``models.convert`` (biases
-  and norm scales perturbed, so they count): ``forward`` hidden states and
+* every family at its ``reduced()`` size (dense, MoE, and the rwkv,
+  mamba hybrid, vision cross-attention and encoder-decoder ones with
+  their ``vision`` / ``frames``), on the JAX package's own parameters
+  carried across by ``models.convert`` (biases, norm scales and the
+  mixers' other zero or one inits perturbed, the rwkv token-shift ``mu``s
+  drawn from U(0, 1), so they count): ``forward`` hidden states and
   ``logits`` within 1e-5 of the reference's largest magnitude (f32 sums of
   at most a few hundred terms round near 1e-7 of it), and prefill then
   greedy decode giving the reference's logits and tokens -- also with
   ``opt_coded_moe``, ``opt_moe_local_dispatch`` and ``opt_onehot_cache``
-  each on, and with RoPE off (sinusoidal positions);
+  each on, and with RoPE off (sinusoidal positions).  The rwkv family's
+  decode is held to the reference's forward: the reference's own decode
+  departs from it (``test_torch_mixers.py``);
 * the MoE dispatch at qwen3's routing (128 experts top-8, capacity factor
   1.25: a 32-token batch keeps 2 of each expert's slots and drops the
   rest) and on exact ties in the router;
@@ -47,10 +52,12 @@ from repro_torch.models.convert import params_from_numpy  # noqa: E402
 from repro_torch.models.layers import ParamDef  # noqa: E402
 
 FAMILIES = ["qwen3-moe-30b-a3b", "dbrx-132b", "qwen2-7b", "internlm2-1.8b",
-            "starcoder2-7b", "command-r-35b"]
-NOT_PORTED = ["rwkv6-3b", "jamba-1.5-large-398b", "whisper-medium",
-              "llama-3.2-vision-11b"]
+            "starcoder2-7b", "command-r-35b", "rwkv6-3b", "jamba-1.5-large-398b",
+            "whisper-medium", "llama-3.2-vision-11b"]
 RTOL = 1e-5  # of the reference's largest magnitude
+# leaves whose init is all zeros or ones (or tiny), perturbed so they count
+PERTURBED = ("norm", "['b", "_b']", "_bias']", "['A_log']", "['D']", "['decay_base']",
+             "['ln_out']", "['u']")
 
 
 def _close(got: torch.Tensor, want, what: str) -> None:
@@ -161,30 +168,17 @@ def test_param_tree_matches_reference(name):
     assert got == want
 
 
-@pytest.mark.parametrize("name", NOT_PORTED)
-def test_families_not_ported_raise_naming_the_roadmap(name):
-    model = tbuild(tcfg.get(name).reduced(), "cpu")
-    with pytest.raises(NotImplementedError, match="ROADMAP queue 1"):
-        model.init()
-    with pytest.raises(NotImplementedError, match="ROADMAP queue 1"):
-        model.init_cache(1, 8)
-
-
-def test_loss_and_extras_raise_naming_the_roadmap():
-    """The loss is ported (``test_torch_training.py``); a batch with the
-    vlm or encdec families' inputs still raises, naming item 5."""
-    model = tbuild(tcfg.get("internlm2-1.8b").reduced(), "cpu")
-    params = model.init()
-    toks = torch.zeros(1, 4, dtype=torch.int32)
-    assert torch.isfinite(model.loss(params, {"tokens": toks, "labels": toks}))
-    with pytest.raises(NotImplementedError, match="ROADMAP queue 1, item 5"):
-        model.loss(params, {"tokens": toks, "labels": toks,
-                            "frames": torch.zeros(1, 2, 64)})
-    with pytest.raises(NotImplementedError, match="ROADMAP queue 1"):
-        model.forward(params, torch.zeros(1, 4, dtype=torch.int32),
-                      extras={"vision": torch.zeros(1, 2, 64)})
-    with pytest.raises(NotImplementedError, match="ROADMAP queue 1"):
-        model._encode(params, None)
+@pytest.mark.parametrize("name", ["whisper-medium", "llama-3.2-vision-11b"])
+def test_memory_families_without_their_inputs_fail_as_the_reference(name):
+    """The vlm and encdec families attend over a memory: without ``vision``
+    or ``frames`` there is none to project, and both packages raise
+    ``ValueError`` (the reference's from its einsum)."""
+    jm, jp, tm, tp = _pair(name)
+    toks = _tokens(tm.cfg, S=4)
+    with pytest.raises(ValueError):
+        jm.forward(jp, jnp.asarray(toks))
+    with pytest.raises(ValueError, match="needs a memory"):
+        tm.forward(tp, torch.from_numpy(toks))
 
 
 # ------------------------------- models -------------------------------------
@@ -204,7 +198,9 @@ def _pair(name: str, opts: tuple = (), no_rope: bool = False):
     def perturb(path, a):
         a = np.asarray(a)
         key = jax.tree_util.keystr(path)
-        if "norm" in key or "['b" in key:
+        if "['mu']" in key:  # the rwkv token shifts
+            return rng.uniform(0.0, 1.0, a.shape).astype(a.dtype)
+        if any(k in key for k in PERTURBED):
             a = a + 0.1 * rng.standard_normal(a.shape).astype(a.dtype)
         return a
 
@@ -217,19 +213,36 @@ def _tokens(cfg, B=2, S=12, seed=2):
     return np.random.default_rng(seed).integers(0, cfg.vocab_size, (B, S)).astype(np.int32)
 
 
-def _jax_trace(model, params, toks, steps):
+def _extras(cfg, B=2, seed=3) -> dict:
+    """The vlm family's image tokens or the encdec family's frames, as
+    numpy (none for the other families)."""
+    rng = np.random.default_rng(seed)
+    if cfg.family == "vlm":
+        return {"vision": rng.standard_normal((B, cfg.vision_tokens, cfg.d_model))
+                .astype(np.float32)}
+    if cfg.family == "encdec":
+        return {"frames": rng.standard_normal((B, cfg.encoder_seq, cfg.d_model))
+                .astype(np.float32)}
+    return {}
+
+
+def _jax_trace(model, params, toks, steps, extras, decode=True):
     """The reference's forward over ``toks`` (hidden, aux, logits), then its
     prefill of the first 8 tokens and ``steps`` greedy decode steps: every
-    step's logits and the tokens.  Two compilations in all."""
+    step's logits and the tokens (with ``decode`` off, the prefill's
+    alone).  Two compilations in all."""
     @jax.jit
-    def forward_and_prefill(p, t):
-        x, aux, _ = model.forward(p, t)
+    def forward_and_prefill(p, t, ex):
+        x, aux, _ = model.forward(p, t, extras=ex)
         return (x, aux, model.logits(p, x)), model.prefill(
-            p, t[:, :8], max_seq=24, cache_dtype=jnp.float32)
+            p, t[:, :8], extras=ex, max_seq=24, cache_dtype=jnp.float32)
 
-    full, (logits, cache) = forward_and_prefill(params, jnp.asarray(toks))
-    step = jax.jit(model.decode_step)
+    ex = {k: jnp.asarray(v) for k, v in extras.items()}
+    full, (logits, cache) = forward_and_prefill(params, jnp.asarray(toks), ex)
     out, toks_out = [logits], []
+    if not decode:
+        return full, out, None
+    step = jax.jit(model.decode_step)
     for _ in range(steps):
         tok = jnp.argmax(logits[:, -1], -1).astype(jnp.int32)[:, None]
         toks_out.append(np.asarray(tok))
@@ -238,10 +251,11 @@ def _jax_trace(model, params, toks, steps):
     return full, out, np.concatenate(toks_out, 1)
 
 
-def _torch_trace(model, params, toks, steps):
-    x, aux, _ = model.forward(params, torch.from_numpy(toks))
-    logits, cache = model.prefill(params, torch.from_numpy(toks[:, :8]), max_seq=24,
-                                  cache_dtype=torch.float32)
+def _torch_trace(model, params, toks, steps, extras):
+    ex = {k: torch.from_numpy(v) for k, v in extras.items()}
+    x, aux, _ = model.forward(params, torch.from_numpy(toks), extras=ex)
+    logits, cache = model.prefill(params, torch.from_numpy(toks[:, :8]), extras=ex,
+                                  max_seq=24, cache_dtype=torch.float32)
     out, toks_out = [logits], []
     for _ in range(steps):
         tok = torch.argmax(logits[:, -1], -1).to(torch.int32)[:, None]
@@ -267,12 +281,22 @@ def test_model_matches_reference(name, opts):
     no_rope = opts == "no_rope"
     opts = () if no_rope else opts
     jm, jp, tm, tp = _pair(name, opts, no_rope)
-    toks = _tokens(tm.cfg)
-    (jx, jaux, jlogits), jlog, jtok = _jax_trace(jm, jp, toks, 4)
-    (tx, taux, tlogits), tlog, ttok = _torch_trace(tm, tp, toks, 4)
+    toks, extras = _tokens(tm.cfg), _extras(tm.cfg)
+    # the reference's rwkv decode is not its forward (``last_cm``): the
+    # port's decode is held to the reference's forward instead
+    by_forward = tm.cfg.rwkv
+    (jx, jaux, jlogits), jlog, jtok = _jax_trace(jm, jp, toks, 4, extras,
+                                                 decode=not by_forward)
+    (tx, taux, tlogits), tlog, ttok = _torch_trace(tm, tp, toks, 4, extras)
     _close(tx, jx, "hidden")
     _close(tlogits, jlogits, "logits")
     _close(taux, jaux, "aux")
+    if by_forward:
+        fed = np.concatenate([toks[:, :8], ttok], 1)
+        want = np.asarray(jax.jit(lambda p, t: jm.logits(p, jm.forward(p, t)[0]))(
+            jp, jnp.asarray(fed)))
+        jlog = [want[:, 7 + i][:, None] for i in range(5)]
+        jtok = want[:, 7:11].argmax(-1)
     for i, (g, w) in enumerate(zip(tlog, jlog)):
         _close(g, w, f"decode step {i} logits")
     np.testing.assert_array_equal(ttok, jtok)
@@ -280,7 +304,8 @@ def test_model_matches_reference(name, opts):
     # prefill + decode == one forward over the same tokens (reduced() is
     # dropless, so the two route alike)
     fed = np.concatenate([toks[:, :8], ttok[:, :3]], 1)
-    x_full, _, _ = tm.forward(tp, torch.from_numpy(fed))
+    ex = {k: torch.from_numpy(v) for k, v in extras.items()}
+    x_full, _, _ = tm.forward(tp, torch.from_numpy(fed), extras=ex)
     full = tm.logits(tp, x_full).numpy()
     for i in range(4):
         _close(tlog[i][:, -1], full[:, 7 + i], f"cached step {i} vs forward")
