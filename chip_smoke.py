@@ -68,7 +68,15 @@ reduced() (card against CPU, and served with worker 0 dead),
 llama-3.2-vision-11b at full depth with image tokens and whisper-medium
 at full depth with frames (one layer group against the CPU, ``generate``,
 cached decode against one forward; whisper's train steps and its training
-CLI); it launches none of the kernels.  Worker processes re-import this script: nothing at its
+CLI); it launches none of the kernels.  ``launch`` drives the launch
+tooling: the H100 data sheet's peaks beside the card's own (calibrated),
+the JAX package's kernel roofline of the fused-decode kernel's heaviest
+launch (added to its row), the dry run of internlm2-1.8b at full width
+and depth on meta held to the card's allocator -- a train step (4 x 512)
+and a decode token (4 x a 4096-token cache): the arguments' bytes within
+0.5% + 1 MiB, the peak printed beside its estimate -- and one full-size
+roofline analysis; it launches none of the kernels.  Worker processes
+start from a fork server and re-import this script: nothing at its
 module level touches the card.
 Each phase prints one JSON line; the line before the last lists the
 kernels with their launches, times and bounds, and the last line is
@@ -84,6 +92,7 @@ import contextlib
 import dataclasses
 import json
 import math
+import os
 import pathlib
 import re
 import statistics
@@ -2568,6 +2577,175 @@ def phase_proc_mux(paper: dict) -> None:
          startup=_startup(list(pool.startup.values())), rtol=DECODE_RTOL)
 
 
+# ------------------------------- phase 11 -----------------------------------
+
+LAUNCH_ARCH = "internlm2-1.8b"
+# the dry run's cells held to the card's allocator: internlm2-1.8b at full
+# width and depth on the one-device mesh, a train step and a decode token
+LAUNCH_CELLS = {"card_train": dict(seq=512, batch=4, kind="train"),
+                "card_decode": dict(seq=4096, batch=4, kind="decode")}
+LAUNCH_MESH = {"data": 1, "model": 1}
+# the arguments' bytes on the card against the dry run's exact arithmetic:
+# 0.5% plus 1 MiB (the allocator rounds each tensor up to 512 bytes)
+LAUNCH_ARG_RTOL, LAUNCH_ARG_SLACK = 5e-3, 1 << 20
+# the peak's predicted band around the dry run's estimate (PERF.md section 6),
+# printed beside it, not checked: the card adds what the meta run cannot
+# see (cuBLAS workspaces, a kernel's own scratch)
+LAUNCH_PEAK_BAND = {"card_train": (-0.01, 0.03), "card_decode": (-0.01, 0.0)}
+LAUNCH_PEAK_SLACK = 64 << 20
+
+
+def _on_card(tree, kind: str, dev: torch.device, vocab: int):
+    """A meta argument tree made on the card in its shapes and dtypes:
+    parameters drawn N(0, 0.02^2), token ids in [0, vocab), the rest
+    (optimizer state, cache) zeros; the cache's host ``pos`` kept."""
+    from repro_torch.launch import dryrun
+
+    def leaf(_, t):
+        if not isinstance(t, torch.Tensor):
+            return t
+        out = torch.zeros(t.shape, dtype=t.dtype, device=dev)
+        if kind == "params":
+            out.normal_(0.0, 0.02)
+        elif kind == "batch":
+            out.random_(0, vocab)
+        return out
+
+    return dryrun._map(leaf, tree)
+
+
+def _descendants() -> dict[int, str]:
+    """This process's live descendants, pid -> command line, from /proc (a
+    zombie, which goes with its parent, is left out)."""
+    children, cmd = {}, {}
+    for entry in pathlib.Path("/proc").iterdir():
+        if not entry.name.isdigit():
+            continue
+        try:
+            stat = (entry / "stat").read_text()
+            argv = (entry / "cmdline").read_bytes()
+        except OSError:  # ended while being read
+            continue
+        state, ppid = stat.rsplit(")", 1)[1].split()[:2]
+        if state != "Z":
+            children.setdefault(int(ppid), []).append(int(entry.name))
+            cmd[int(entry.name)] = argv.replace(b"\0", b" ").decode(errors="replace")[:120]
+    out, todo = {}, [os.getpid()]
+    while todo:
+        for pid in children.get(todo.pop(), []):
+            out[pid] = cmd[pid]
+            todo.append(pid)
+    return out
+
+
+def phase_stop_workers() -> None:
+    """The worker pools are done: stop their fork server and the resource
+    tracker, and check that every process they started has ended (one
+    that outlives the script would be forked from the server, not from this
+    process, so the pids are taken before the server stops)."""
+    from repro_torch.runtime import procpool
+
+    before = _descendants()
+    procpool.stop_fork_server()
+    deadline = time.perf_counter() + 10.0
+    while time.perf_counter() < deadline and any(
+            pathlib.Path(f"/proc/{pid}").exists() for pid in before):
+        time.sleep(0.05)
+    left = {pid: c for pid, c in before.items() if pathlib.Path(f"/proc/{pid}").exists()}
+    check(not left and not _descendants(),
+          f"processes left after the pools: {left or _descendants()}")
+    emit(phase="stop_workers", stopped=sorted(before.values()))
+
+
+def phase_launch(dev: torch.device, row1: dict) -> None:
+    """The launch tooling on the card: the data sheet's peaks and the
+    card's own (calibrated), the JAX package's kernel roofline of row 1's
+    heaviest launch (added to that row), the dry run's byte account held
+    to the card's allocator on the two cells, and one full-size roofline
+    analysis on meta.  No kernel of the table is launched."""
+    from repro_torch import configs
+    from repro_torch.launch import dryrun, meshctx, roofline
+
+    t_phase = time.perf_counter()
+    sheet = roofline.machine_peaks()
+    measured = roofline.machine_peaks(calibrate=True)
+    emit(phase="launch", peaks={"default": sheet, "calibrated": measured,
+                                "datasheet_hbm_bytes_per_s": HBM_BYTES_PER_S})
+
+    shape = row1["shape"]
+    cost = roofline.fused_kernel_cost(live_tiles=shape["live_slots"], bs=shape["bs"],
+                                      bt=shape["bt"], mn=shape["mn"],
+                                      br=shape["CB"] * shape["bs"], fused=True)
+    row1["reference_roofline"] = {
+        "cost": cost, "measured_ms": row1["ms"],
+        "fraction_datasheet": roofline.roofline_fraction(
+            cost, row1["ms"] / 1e3, roofline.machine_peaks(calibrate=False)),
+        "fraction_calibrated": roofline.roofline_fraction(cost, row1["ms"] / 1e3, measured),
+        "note": "gathered B counted once per live slot (roofline.fused_kernel_cost)"}
+    emit(phase="launch", kernel=row1["name"], **row1["reference_roofline"])
+
+    cfg = configs.get(LAUNCH_ARCH)
+    dryrun.SHAPES.update(LAUNCH_CELLS)
+    cells = {}
+    for name in LAUNCH_CELLS:
+        rec = dryrun.run_cell(LAUNCH_ARCH, name, False, mesh=LAUNCH_MESH)
+        check(rec["status"] == "ok", f"launch {name}: the dry run says {rec}")
+        ma = rec["memory_analysis"]
+        with meshctx.use_mesh(LAUNCH_MESH):
+            step, meta_args, _, kinds = dryrun.build_cell(cfg, name, LAUNCH_MESH, device=dev)
+        torch.cuda.synchronize()
+        torch.cuda.empty_cache()
+        base = torch.cuda.memory_allocated()
+        args = [_on_card(a, kind, dev, cfg.vocab_size) for a, kind in zip(meta_args, kinds)]
+        torch.cuda.synchronize()
+        grown = torch.cuda.memory_allocated() - base
+        arg_tol = LAUNCH_ARG_RTOL * ma["argument_bytes"] + LAUNCH_ARG_SLACK
+        check(abs(grown - ma["argument_bytes"]) <= arg_tol,
+              f"launch {name}: the arguments took {grown} bytes on the card, "
+              f"the dry run says {ma['argument_bytes']} (+- {arg_tol})")
+        torch.cuda.reset_peak_memory_stats()
+        step_s = []
+        for _ in range(2):
+            t0 = time.perf_counter()
+            out = step(*args)
+            torch.cuda.synchronize()
+            step_s.append(time.perf_counter() - t0)
+        peak = torch.cuda.max_memory_allocated() - base
+        if LAUNCH_CELLS[name]["kind"] == "train":
+            loss = float(out[2]["loss"])
+            check(math.isfinite(loss), f"launch {name}: loss {loss}")
+            result = {"loss": loss}
+        else:
+            tokens = out[0]
+            check(tokens.shape == (LAUNCH_CELLS[name]["batch"],)
+                  and bool(((tokens >= 0) & (tokens < cfg.vocab_size)).all()),
+                  f"launch {name}: decoded {tokens}")
+            result = {"tokens": tokens.tolist()}
+        del out, args
+        torch.cuda.empty_cache()
+        lo, hi = LAUNCH_PEAK_BAND[name]
+        est = ma["peak_bytes_est"]
+        cells[name] = {
+            "argument_bytes": ma["argument_bytes"], "card_argument_bytes": grown,
+            "argument_tol": arg_tol, "by_kind": rec["argument_bytes_by_kind"],
+            "peak_bytes_est": est, "card_peak_bytes": peak,
+            "card_over_est": peak / est,
+            "band": [est * (1 + lo), est * (1 + hi) + LAUNCH_PEAK_SLACK],
+            "in_band": est * (1 + lo) <= peak <= est * (1 + hi) + LAUNCH_PEAK_SLACK,
+            "temp_bytes": ma["temp_bytes"], "flops": rec["cost_analysis"]["flops_per_device"],
+            "meta_s": rec["meta_s"], "step_s": step_s, **result}
+        emit(phase="launch", cell=name, arch=LAUNCH_ARCH, mesh=LAUNCH_MESH,
+             **LAUNCH_CELLS[name], **cells[name])
+
+    t0 = time.perf_counter()
+    analysis = roofline.analyze_cell(LAUNCH_ARCH, "train_4k")
+    check(analysis["status"] == "ok", f"launch analyze_cell: {analysis}")
+    emit(phase="launch", analysis={k: analysis[k] for k in (
+        "arch", "shape", "chips", "terms", "dominant", "useful_ratio",
+        "roofline_fraction_bound", "n_params", "meta_s")},
+         analysis_s=time.perf_counter() - t0, seconds=time.perf_counter() - t_phase)
+
+
 # ------------------------------- phase 6b -----------------------------------
 
 def phase_schemes(full: dict) -> None:
@@ -2638,30 +2816,42 @@ def main() -> int:
     sys.path.insert(0, str(ROOT / "src"))
     import repro_torch  # noqa: F401  (fails here when run outside the repo)
 
-    info = phase_device()
-    built = phase_build()
-    phase_kernels()
-    phase_entry_kernels()
-    phase_accum_tiles()
-    kernels, full = phase_main(built)
-    kernels += phase_entry_full(full, built)
-    by_path = {"device_job": phase_device_job(full)}
-    _, by_path["schemes"] = _counted(lambda: phase_schemes(full))
-    paper = phase_straggler_job(full, torch.device("cuda", 0))
+    seconds = {}  # each phase's wall seconds, printed before the results
+
+    def timed(name, fn):
+        t0 = time.perf_counter()
+        out = fn()
+        seconds[name] = round(time.perf_counter() - t0, 2)
+        return out
+
+    dev = torch.device("cuda", 0)
+    info = timed("device", phase_device)
+    built = timed("build", phase_build)
+    timed("kernels", lambda: (phase_kernels(), phase_entry_kernels(), phase_accum_tiles()))
+    kernels, full = timed("main_path", lambda: phase_main(built))
+    kernels += timed("entry_points", lambda: phase_entry_full(full, built))
+    by_path = {"device_job": timed("device_job", lambda: phase_device_job(full))}
+    _, by_path["schemes"] = timed("schemes", lambda: _counted(lambda: phase_schemes(full)))
+    paper = timed("straggler_job", lambda: phase_straggler_job(full, dev))
     del full
     torch.cuda.empty_cache()
-    phase_live_job(paper)
-    _, by_path["serving"] = _counted(lambda: phase_serving(info["nvidia_smi"], torch.device("cuda", 0)))
+    timed("live_job", lambda: phase_live_job(paper))
+    for name, phase in (("serving", phase_serving), ("train", phase_train),
+                        ("families", phase_families)):
+        _, by_path[name] = timed(name, lambda: _counted(
+            lambda: phase(info["nvidia_smi"], dev)))
+        torch.cuda.empty_cache()
+    _, by_path["proc_job"] = timed("proc_job", lambda: _counted(lambda: phase_proc_job(paper)))
+    _, by_path["proc_mux"] = timed("proc_mux", lambda: _counted(lambda: phase_proc_mux(paper)))
+    timed("stop_workers", phase_stop_workers)
+    del paper
     torch.cuda.empty_cache()
-    _, by_path["train"] = _counted(lambda: phase_train(info["nvidia_smi"], torch.device("cuda", 0)))
-    torch.cuda.empty_cache()
-    _, by_path["families"] = _counted(
-        lambda: phase_families(info["nvidia_smi"], torch.device("cuda", 0)))
-    torch.cuda.empty_cache()
-    _, by_path["proc_job"] = _counted(lambda: phase_proc_job(paper))
-    _, by_path["proc_mux"] = _counted(lambda: phase_proc_mux(paper))
+    _, by_path["launch"] = timed("launch", lambda: _counted(
+        lambda: phase_launch(dev, kernels[0])))
+    emit(phase="seconds", **seconds, total=round(sum(seconds.values()), 2))
+    check(not _descendants(), f"processes still running: {_descendants()}")
     for path in ("schemes", "serving", "train", "families", "proc_job",
-                 "proc_mux"):  # they run none of the kernels
+                 "proc_mux", "launch"):  # they run none of the kernels
         check(not any(by_path[path].values()), f"{path} launched {by_path[path]}")
     for row in kernels:  # each path's counts, read on their own, and their sum
         row["launches_by_path"] = {"main": row["launches"], **{

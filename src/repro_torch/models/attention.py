@@ -25,15 +25,15 @@ def attn_defs(cfg, cross: bool = False) -> dict:
     d, hd = cfg.d_model, cfg.hd
     H, KV = cfg.num_heads, cfg.num_kv_heads
     defs = {
-        "wq": ParamDef((d, H * hd)),
-        "wk": ParamDef((d, KV * hd)),
-        "wv": ParamDef((d, KV * hd)),
-        "wo": ParamDef((H * hd, d)),
+        "wq": ParamDef((d, H * hd), spec=("data", "model")),
+        "wk": ParamDef((d, KV * hd), spec=("data", "model")),
+        "wv": ParamDef((d, KV * hd), spec=("data", "model")),
+        "wo": ParamDef((H * hd, d), spec=("model", "data")),
     }
     if cfg.qkv_bias:
-        defs["bq"] = ParamDef((H * hd,), init="zeros")
-        defs["bk"] = ParamDef((KV * hd,), init="zeros")
-        defs["bv"] = ParamDef((KV * hd,), init="zeros")
+        defs["bq"] = ParamDef((H * hd,), init="zeros", spec=("model",))
+        defs["bk"] = ParamDef((KV * hd,), init="zeros", spec=("model",))
+        defs["bv"] = ParamDef((KV * hd,), init="zeros", spec=("model",))
     return defs
 
 

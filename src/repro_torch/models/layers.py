@@ -22,10 +22,13 @@ from torch.utils.checkpoint import checkpoint
 
 @dataclasses.dataclass(frozen=True)
 class ParamDef:
-    """Declarative parameter: a shape and an init rule."""
+    """Declarative parameter: a shape, an init rule and a placement (the
+    mesh axis names each dimension is sharded over, as the JAX package's
+    ``PartitionSpec`` axes; ``()`` is replicated)."""
 
     shape: tuple[int, ...]
     init: str = "normal"        # normal | zeros | ones | small_normal
+    spec: tuple = ()
 
     def materialize(self, generator: torch.Generator, dtype: torch.dtype,
                     device: torch.device) -> torch.Tensor:
@@ -54,6 +57,21 @@ def tree_init(defs: dict, generator: torch.Generator, dtype: torch.dtype,
                 if isinstance(v, ParamDef)
                 else tree_init(v, generator, dtype, device))
             for k, v in sorted(defs.items())}
+
+
+def tree_shapes(defs: dict, dtype: torch.dtype = torch.float32,
+                device="meta") -> dict:
+    """The tree of ``tree_init`` as empty tensors (meta by default: shapes
+    and dtypes without storage, the JAX package's ``ShapeDtypeStruct``s)."""
+    return {k: (torch.empty(v.shape, dtype=dtype, device=device)
+                if isinstance(v, ParamDef) else tree_shapes(v, dtype, device))
+            for k, v in defs.items()}
+
+
+def tree_specs(defs: dict) -> dict:
+    """The tree of each ``ParamDef``'s placement tuple."""
+    return {k: v.spec if isinstance(v, ParamDef) else tree_specs(v)
+            for k, v in defs.items()}
 
 
 # ------------------------------- norms -------------------------------------
@@ -139,12 +157,15 @@ def mlp_apply(x: torch.Tensor, p: dict, act: str, bias: bool) -> torch.Tensor:
 
 
 def mlp_defs(d: int, ff: int, act: str, bias: bool) -> dict:
-    defs = {"w_up": ParamDef((d, ff)), "w_down": ParamDef((ff, d))}
+    defs = {
+        "w_up": ParamDef((d, ff), spec=("data", "model")),
+        "w_down": ParamDef((ff, d), spec=("model", "data")),
+    }
     if act == "silu":
-        defs["w_gate"] = ParamDef((d, ff))
+        defs["w_gate"] = ParamDef((d, ff), spec=("data", "model"))
     if bias:
-        defs["b_up"] = ParamDef((ff,), init="zeros")
-        defs["b_down"] = ParamDef((d,), init="zeros")
+        defs["b_up"] = ParamDef((ff,), init="zeros", spec=("model",))
+        defs["b_down"] = ParamDef((d,), init="zeros", spec=())
     return defs
 
 

@@ -38,10 +38,10 @@ def moe_defs(cfg) -> dict:
     d = cfg.d_model
     E, ff = cfg.moe.num_experts, cfg.moe.d_ff
     return {
-        "router": ParamDef((d, E), init="small_normal"),
-        "w_gate": ParamDef((E, d, ff)),
-        "w_up": ParamDef((E, d, ff)),
-        "w_down": ParamDef((E, ff, d)),
+        "router": ParamDef((d, E), init="small_normal", spec=("data", None)),
+        "w_gate": ParamDef((E, d, ff), spec=("model", "data", None)),
+        "w_up": ParamDef((E, d, ff), spec=("model", "data", None)),
+        "w_down": ParamDef((E, ff, d), spec=("model", None, "data")),
     }
 
 

@@ -46,13 +46,15 @@ import torch
 from torch.utils.checkpoint import checkpoint
 
 from repro_torch.core.blocks import resolve_device
+from repro_torch.launch.meshctx import spec as mesh_spec
 from repro_torch.models import attention as attn_lib
 from repro_torch.models import moe as moe_lib
 from repro_torch.models import rwkv as rwkv_lib
 from repro_torch.models import ssm as ssm_lib
 from repro_torch.models.layers import (ParamDef, cross_entropy_chunked,
                                        cross_entropy_fused, mlp_apply, mlp_defs, norm,
-                                       sinusoidal_positions, tree_init)
+                                       sinusoidal_positions, tree_init, tree_shapes,
+                                       tree_specs)
 
 AUX_LOSS_COEF = 0.01
 
@@ -138,17 +140,18 @@ class Model:
         d, V = cfg.d_model, cfg.vocab_size
 
         def stack(defs, reps):
-            return {k: (ParamDef((reps,) + v.shape, v.init) if isinstance(v, ParamDef)
-                        else stack(v, reps)) for k, v in defs.items()}
+            return {k: (ParamDef((reps,) + v.shape, v.init, (None,) + tuple(v.spec))
+                        if isinstance(v, ParamDef) else stack(v, reps))
+                    for k, v in defs.items()}
 
         defs: dict = {
-            "embed": ParamDef((V, d)),
+            "embed": ParamDef((V, d), spec=("model", None)),
             "final_norm": ParamDef((d,), init="ones"),
             "groups": {f"slot{s}": stack(self._slot_defs(mixer, ffn), cfg.num_groups)
                        for s, (mixer, ffn) in enumerate(self.plan)},
         }
         if not cfg.tie_embeddings:
-            defs["head"] = ParamDef((d, V))
+            defs["head"] = ParamDef((d, V), spec=(None, "model"))
         if cfg.family == "encdec":
             defs["encoder"] = stack(self._slot_defs("attn", "mlp"), cfg.encoder_layers)
             defs["enc_final_norm"] = ParamDef((d,), init="ones")
@@ -159,6 +162,14 @@ class Model:
         ``torch.Generator`` there seeded with ``seed``."""
         gen = torch.Generator(device=self.device).manual_seed(int(seed))
         return tree_init(self.param_defs(), gen, dtype, self.device)
+
+    def shapes(self, dtype: torch.dtype = torch.bfloat16) -> dict:
+        """The parameters as meta tensors (shapes and dtypes, no storage)."""
+        return tree_shapes(self.param_defs(), dtype)
+
+    def specs(self) -> dict:
+        """Each parameter's placement tuple, in the parameters' tree."""
+        return tree_specs(self.param_defs())
 
     # ----------------------------- caches -----------------------------------
 
@@ -190,6 +201,33 @@ class Model:
                    dtype: torch.dtype = torch.bfloat16) -> dict:
         return {"pos": 0, "groups": {f"slot{s}": self._slot_cache(mixer, batch, max_seq, dtype)
                                      for s, (mixer, _) in enumerate(self.plan)}}
+
+    def cache_specs(self, cache: dict) -> dict:
+        """The placement of each leaf of ``cache`` under the active mesh
+        (``launch.meshctx``), keyed by what the leaf is, as the JAX package
+        keys it: the k/v caches (G, B, T, KV, hd) batch over "dp" and the
+        sequence over "model" (each model shard attends to its slice of
+        the sequence); RWKV's S (G, B, H, hs, hs) heads over "model";
+        Mamba's conv state (G, B, dc-1, di) and h (G, B, di, ds) d_inner
+        over "model"; every other leaf its batch over "dp"; ``pos`` (a
+        host int) replicated."""
+        def leaf(name, a) -> tuple:
+            if name in ("k", "v", "mk", "mv", "S"):
+                return mesh_spec(None, "dp", "model", None, None)
+            if name == "conv":
+                return mesh_spec(None, "dp", None, "model")
+            if name == "h":
+                return mesh_spec(None, "dp", "model", None)
+            return mesh_spec(*([None, "dp"] + [None] * (a.dim() - 2)))
+
+        def slot(mixer, state):
+            if mixer == "mamba":  # the list [conv, h]
+                return [leaf(n, a) for n, a in zip(("conv", "h"), state, strict=True)]
+            return {k: leaf(k, a) for k, a in state.items()}
+
+        return {"pos": mesh_spec(),
+                "groups": {f"slot{s}": slot(mixer, cache["groups"][f"slot{s}"])
+                           for s, (mixer, _) in enumerate(self.plan)}}
 
     # ---------------------------- forward ------------------------------------
 
@@ -385,5 +423,8 @@ class Model:
 
 def build(cfg, device=None) -> Model:
     """The model of ``cfg`` on ``device``: None means the CUDA card and
-    raises where there is none; pass ``"cpu"`` to run on the CPU."""
+    raises where there is none; pass ``"cpu"`` to run on the CPU, or
+    ``"meta"`` for shapes without storage (the dry run)."""
+    if device is not None and torch.device(device).type == "meta":
+        return Model(cfg, torch.device("meta"))
     return Model(cfg, resolve_device(device))

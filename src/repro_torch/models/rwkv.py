@@ -35,28 +35,28 @@ def rwkv_defs(cfg) -> dict:
     H = d // hs
     return {
         # token-shift interpolation weights for the r/k/v/g/w inputs
-        "mu": ParamDef((5, d), init="small_normal"),
-        "wr": ParamDef((d, d)),
-        "wk": ParamDef((d, d)),
-        "wv": ParamDef((d, d)),
-        "wg": ParamDef((d, d)),
-        "wo": ParamDef((d, d)),
+        "mu": ParamDef((5, d), init="small_normal", spec=(None, None)),
+        "wr": ParamDef((d, d), spec=("data", "model")),
+        "wk": ParamDef((d, d), spec=("data", "model")),
+        "wv": ParamDef((d, d), spec=("data", "model")),
+        "wg": ParamDef((d, d), spec=("data", "model")),
+        "wo": ParamDef((d, d), spec=("model", "data")),
         # low-rank data-dependent decay: d -> rank -> d
-        "decay_a": ParamDef((d, DECAY_RANK), init="small_normal"),
-        "decay_b": ParamDef((DECAY_RANK, d), init="small_normal"),
-        "decay_base": ParamDef((d,), init="zeros"),
-        "u": ParamDef((H, hs), init="small_normal"),
-        "ln_out": ParamDef((d,), init="ones"),
+        "decay_a": ParamDef((d, DECAY_RANK), init="small_normal", spec=("data", None)),
+        "decay_b": ParamDef((DECAY_RANK, d), init="small_normal", spec=(None, "model")),
+        "decay_base": ParamDef((d,), init="zeros", spec=("model",)),
+        "u": ParamDef((H, hs), init="small_normal", spec=("model", None)),
+        "ln_out": ParamDef((d,), init="ones", spec=()),
     }
 
 
 def channel_mix_defs(cfg) -> dict:
     d, ff = cfg.d_model, cfg.d_ff
     return {
-        "mu": ParamDef((2, d), init="small_normal"),
-        "wk": ParamDef((d, ff)),
-        "wv": ParamDef((ff, d)),
-        "wr": ParamDef((d, d)),
+        "mu": ParamDef((2, d), init="small_normal", spec=(None, None)),
+        "wk": ParamDef((d, ff), spec=("data", "model")),
+        "wv": ParamDef((ff, d), spec=("model", "data")),
+        "wr": ParamDef((d, d), spec=("data", None)),
     }
 
 

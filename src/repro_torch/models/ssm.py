@@ -32,15 +32,15 @@ def mamba_defs(cfg) -> dict:
     d = cfg.d_model
     di, dt_rank, ds, dc = _dims(cfg)
     return {
-        "in_proj": ParamDef((d, 2 * di)),
-        "conv_w": ParamDef((dc, di)),
-        "conv_b": ParamDef((di,), init="zeros"),
-        "x_proj": ParamDef((di, dt_rank + 2 * ds)),
-        "dt_proj": ParamDef((dt_rank, di)),
-        "dt_bias": ParamDef((di,), init="zeros"),
-        "A_log": ParamDef((di, ds), init="zeros"),
-        "D": ParamDef((di,), init="ones"),
-        "out_proj": ParamDef((di, d)),
+        "in_proj": ParamDef((d, 2 * di), spec=("data", "model")),
+        "conv_w": ParamDef((dc, di), spec=(None, "model")),
+        "conv_b": ParamDef((di,), init="zeros", spec=("model",)),
+        "x_proj": ParamDef((di, dt_rank + 2 * ds), spec=("model", None)),
+        "dt_proj": ParamDef((dt_rank, di), spec=(None, "model")),
+        "dt_bias": ParamDef((di,), init="zeros", spec=("model",)),
+        "A_log": ParamDef((di, ds), init="zeros", spec=("model", None)),
+        "D": ParamDef((di,), init="ones", spec=("model",)),
+        "out_proj": ParamDef((di, d), spec=("model", "data")),
     }
 
 

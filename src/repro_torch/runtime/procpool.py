@@ -2,7 +2,7 @@
 
 ``run_live_job`` runs workers as daemon threads -- they share a GIL and a
 fate, so a "straggler" is an injected sleep and a "dead worker" is a thought
-experiment.  This module promotes workers to spawn-started OS subprocesses
+experiment.  This module promotes workers to OS subprocesses
 with per-worker pipes and serializes their ``(worker, chunk, payload)``
 arrivals into the SAME master loop (``runtime.executor._consume_events``)
 the simulator and the thread runtime feed -- only the transport changed.
@@ -44,6 +44,12 @@ its blocks transposed once on the host, and each worker gets only the
 blocks its rows use; the master moves each payload to its device once, on
 arrival.
 
+Workers start from a fork server (``_context``): one process that imports
+torch and this module once, and that every worker is forked from, so a
+pool of 28 workers pays torch's import once instead of 28 times on the
+host's cores.  The server never touches a device; each worker opens its
+own after the fork.
+
 Start-up is kept out of the job's clock.  A ``ProcPool`` worker receives
 its operands, puts them on the device, says hello and then waits for
 ``go``, which the master sends once every worker said hello or ended
@@ -73,6 +79,9 @@ import threading
 import time
 import warnings
 from multiprocessing import connection as mp_connection
+from multiprocessing import forkserver as mp_forkserver
+from multiprocessing import resource_tracker as mp_resource_tracker
+from multiprocessing import util as mp_util
 
 import numpy as np
 import torch
@@ -98,6 +107,51 @@ from repro_torch.runtime.executor import (
 
 #: master poll cadence, seconds: the wait() timeout between liveness sweeps
 _POLL = 0.02
+
+#: what the fork server imports before it forks a worker: torch and the
+#: workers' own code (none of it opens a device when imported)
+_PRELOAD = ["numpy", "scipy.sparse", "torch", "repro_torch.runtime.procpool"]
+
+
+#: the pid of the process that set ``stop_fork_server`` to run at its exit
+_server_owner: int | None = None
+
+
+def _context():
+    """The worker processes' start method: a fork server with ``_PRELOAD``
+    imported.  The server is a fresh interpreter, started once for the
+    process and never given a device, so a fork of it holds no CUDA
+    context or thread; the worker re-imports the caller's main module, as
+    a spawned one does.  ``stop_fork_server`` runs at exit."""
+    global _server_owner
+    ctx = multiprocessing.get_context("forkserver")
+    ctx.set_forkserver_preload(_PRELOAD)
+    if _server_owner != os.getpid():
+        _server_owner = os.getpid()
+        # priority below 0: after multiprocessing has joined the workers;
+        # above -100: before it removes the temporary directory that holds
+        # the server's socket
+        mp_util.Finalize(None, stop_fork_server, exitpriority=-50)
+    return ctx
+
+
+def stop_fork_server() -> None:
+    """Stop the fork server and the resource tracker it holds open, and wait
+    until both have exited; the next pool starts them again.
+
+    Left alone, the server outlives its program: it exits on the EOF of a
+    pipe the program closes as it ends, and then takes torch's interpreter
+    shutdown.  So this runs at exit, once multiprocessing has joined the
+    workers; call it sooner to have both gone sooner.  Raises while a worker
+    still runs."""
+    if _server_owner != os.getpid():
+        return
+    live = multiprocessing.active_children()
+    if live:
+        raise RuntimeError("worker processes still running: "
+                           + ", ".join(p.name for p in live))
+    mp_forkserver._forkserver._stop()
+    mp_resource_tracker._resource_tracker._stop()
 
 
 # -------------------------------- wire format --------------------------------
@@ -208,7 +262,7 @@ def _open_device(device: str) -> torch.device:
 
 def _worker_main(worker, inbox, conn, device, t_spawn, row_chunks, n,
                  num_chunks, start_chunk, chunk_sleep, hb_interval):
-    """Subprocess entry point (spawn target; must stay module-level).
+    """Subprocess entry point (process target; must stay module-level).
 
     Opens the device, takes its operands from ``inbox``, says hello, and on
     ``go`` computes the worker's ordered chunk stream exactly like the
@@ -316,7 +370,7 @@ class ProcPool:
         plan.validate(code.num_workers, self.num_chunks)
         self.injector = FaultInjector(plan, self.ledger)
 
-        self._ctx = multiprocessing.get_context("spawn")
+        self._ctx = _context()
         tasks_by_row = {t.worker: t for t in make_tasks(code.M)}
         A_wire, B_wire = _wire_operands(A_blocks, B_blocks)
         self._row_chunks, self._operands = {}, {}
@@ -559,7 +613,7 @@ class ProcPool:
 # --------------------------- job-multiplexed pool ---------------------------
 
 def _mux_worker_main(worker, inbox, conn, device, t_spawn, sleep_per_chunk):
-    """Persistent mux subprocess (spawn target; must stay module-level).
+    """Persistent mux subprocess (process target; must stay module-level).
 
     Serves batch after batch.  Wire format: master -> worker (``inbox``)
     ``("batch", epoch, items, jobdata)`` with ``items`` a fair ``[(jid,
@@ -658,7 +712,7 @@ class MuxProcPool:
                 raise ValueError(f"fault {f.kind} targets worker {f.worker}, "
                                  f"pool has {self.num_workers}")
         self.injector = FaultInjector(plan, self.ledger)
-        self._ctx = multiprocessing.get_context("spawn")
+        self._ctx = _context()
         self._conns: dict[int, object] = {}
         self._outboxes: dict[int, _Outbox] = {}
         self._procs: dict[int, object] = {}
@@ -718,6 +772,9 @@ class MuxProcPool:
             proc.join(timeout=max(0.1, deadline - time.perf_counter()))
             if proc.is_alive():
                 proc.terminate()
+                proc.join(timeout=1.0)
+            if proc.is_alive():  # pragma: no cover - SIGKILL backstop
+                proc.kill()
                 proc.join(timeout=1.0)
             if self._conns.get(w) is not None:
                 self._conns[w].close()
@@ -864,9 +921,9 @@ def run_proc_job(
     crashed/severed/overdue workers; a worker that raised (one that cannot
     open the device, say) raises ``RuntimeError`` naming it.
 
-    Workers are spawn-started, so a script calling this from module scope
-    needs the standard ``if __name__ == "__main__":`` guard (the child
-    re-imports the caller's main module).
+    A worker re-imports the caller's main module, so a script calling this
+    from module scope needs the standard ``if __name__ == "__main__":``
+    guard.
     """
     chunked = code.chunked(num_chunks)
     pool = ProcPool(

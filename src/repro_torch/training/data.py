@@ -4,9 +4,9 @@ bit for bit).
 
 The stream is a fixed-seed Zipf-ish token process: cheap, with no I/O,
 and treated exactly like a real corpus reader.  ``frames`` / ``vision``
-are stub embeddings for the encdec and vlm families.  The reference's
-``input_specs`` (shapes for the dry run) waits for the port's launch and
-dry-run (ROADMAP queue 1, item 8).
+are stub embeddings for the encdec and vlm families.  ``input_specs``
+gives the dry run the same inputs as meta tensors (shapes and dtypes, no
+storage).
 """
 
 from __future__ import annotations
@@ -14,6 +14,7 @@ from __future__ import annotations
 import dataclasses
 
 import numpy as np
+import torch
 
 
 @dataclasses.dataclass
@@ -47,3 +48,32 @@ class SyntheticCorpus:
             out["vision"] = rng.standard_normal(
                 (self.batch, cfg.vision_tokens, cfg.d_model)).astype(self.dtype) * 0.02
         return out
+
+
+def input_specs(cfg, batch: int, seq: int, dtype="bfloat16", kind: str = "train") -> dict:
+    """Meta tensors for every model input (the dry run's stand-ins).
+
+    kind: train -> tokens + labels (+ modality); prefill -> tokens (+
+    modality); decode -> one token (the cache comes from
+    ``Model.init_cache``).  ``dtype`` (a name or a torch dtype) is the stub
+    embeddings'."""
+    emb = getattr(torch, dtype) if isinstance(dtype, str) else dtype
+
+    def meta(shape, dt):
+        return torch.empty(shape, dtype=dt, device="meta")
+
+    if kind == "train":
+        out = {"tokens": meta((batch, seq), torch.int32),
+               "labels": meta((batch, seq), torch.int32)}
+    elif kind == "prefill":
+        out = {"tokens": meta((batch, seq), torch.int32)}
+    elif kind == "decode":
+        out = {"tokens": meta((batch, 1), torch.int32)}
+    else:
+        raise ValueError(kind)
+    if kind != "decode":
+        if cfg.family == "encdec":
+            out["frames"] = meta((batch, cfg.encoder_seq, cfg.d_model), emb)
+        elif cfg.family == "vlm":
+            out["vision"] = meta((batch, cfg.vision_tokens, cfg.d_model), emb)
+    return out

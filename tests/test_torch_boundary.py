@@ -12,7 +12,8 @@
   ``device="cpu"``;
   and the training path's (``launch.train.main``, ``make_train_step``
   over a model built with ``device=None``, ``save_coded_checkpoint``,
-  ``coded_aggregate``);
+  ``coded_aggregate``), and the launch tooling's (``machine_peaks``
+  calibrating, ``build_cell`` for a model that runs);
 * ``import repro_torch.serving`` loads neither the model nor torch;
 * a kernel wrapper given CPU tensors takes the plain version and never
   reaches the CUDA lane, while the CUDA wrapper refuses CPU tensors;
@@ -221,6 +222,31 @@ def test_training_entry_points_without_cuda_raise_unless_asked_for_the_cpu(name,
     if torch.cuda.is_available():
         pytest.skip("a CUDA device is present: the card is meant to be used")
     call = _training_calls(tmp_path)[name]
+    for device in (None, "cuda"):
+        with pytest.raises(RuntimeError, match="no CUDA device"):
+            call(device)
+    assert call("cpu") is not None
+
+
+def _launch_calls():
+    """The launch tooling's entry points that reach a device, as calls
+    taking ``device``."""
+    from repro_torch.configs import get
+    from repro_torch.launch import dryrun, roofline
+
+    cfg = get("internlm2-1.8b").reduced()
+    return {
+        "machine_peaks": lambda d: roofline.machine_peaks(True, reps=1, device=d),
+        "build_cell": lambda d: dryrun.build_cell(cfg, "decode_32k", {"data": 1, "model": 1},
+                                                  device=d),
+    }
+
+
+@pytest.mark.parametrize("name", ["machine_peaks", "build_cell"])
+def test_launch_entry_points_without_cuda_raise_unless_asked_for_the_cpu(name):
+    if torch.cuda.is_available():
+        pytest.skip("a CUDA device is present: the card is meant to be used")
+    call = _launch_calls()[name]
     for device in (None, "cuda"):
         with pytest.raises(RuntimeError, match="no CUDA device"):
             call(device)

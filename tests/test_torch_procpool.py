@@ -459,3 +459,76 @@ def test_jobmux_source_object_device_and_kind_are_checked():
     with pytest.raises(ValueError) as want:
         jx.JobMux(4, source="procs")
     assert str(got.value) == str(want.value)
+
+
+_NO_PROCESS_LEFT = """
+import sys
+import numpy as np
+import scipy.sparse as sp
+from repro_torch.core import schemes
+from repro_torch.core.encoder import split_blocks
+from repro_torch.runtime import procpool
+from repro_torch.runtime.chaos import kill
+
+
+def job():
+    A = sp.random(40, 16, density=0.3, format="csc",
+                  random_state=np.random.RandomState(0))
+    B = sp.random(40, 20, density=0.3, format="csc",
+                  random_state=np.random.RandomState(1))
+    rep = procpool.run_proc_job(
+        schemes.uncoded(2, 2), split_blocks(A, 2), split_blocks(B, 2), 2,
+        num_chunks=2, plan=[kill(1, after_chunk=0)], respawn=True,
+        device="cpu", timeout=60.0)
+    assert rep.blocks is not None and len(rep.blocks) == 4
+
+
+def children():
+    import os
+    out = []
+    for p in filter(str.isdigit, os.listdir("/proc")):
+        try:
+            state, ppid = open(f"/proc/{p}/stat").read().rsplit(")", 1)[1].split()[:2]
+            argv = open(f"/proc/{p}/cmdline").read().replace(chr(0), " ")
+        except (OSError, ValueError):
+            continue
+        if ppid == str(os.getpid()) and state != "Z":
+            out.append(argv)
+    return out
+
+
+if __name__ == "__main__":
+    job()
+    kids = children()
+    assert any("forkserver" in c for c in kids), kids
+    procpool.stop_fork_server()
+    assert children() == [], children()
+    job()  # the next pool starts them again; the exit stops them
+"""
+
+
+def test_program_that_ran_pools_leaves_no_process_behind(tmp_path):
+    """The fork server and the resource tracker end with the program, and
+    ``stop_fork_server`` ends them sooner: no process of the program's
+    session (read from /proc) outlives it."""
+    import pathlib
+    import subprocess
+    import sys
+
+    script = tmp_path / "pools.py"
+    script.write_text(_NO_PROCESS_LEFT)
+    src = pathlib.Path(__file__).resolve().parents[1] / "src"
+    env = {**os.environ, "PYTHONPATH": str(src)}
+    proc = subprocess.Popen([sys.executable, str(script)], env=env,
+                            start_new_session=True, stderr=subprocess.PIPE)
+    _, err = proc.communicate(timeout=120)
+    left = []
+    for pid in filter(str.isdigit, os.listdir("/proc")):
+        try:
+            stat = pathlib.Path(f"/proc/{pid}/stat").read_text()
+        except OSError:  # ended while being read
+            continue
+        if stat.rsplit(")", 1)[1].split()[3] == str(proc.pid):  # its session
+            left.append(pid)
+    assert proc.returncode == 0, err.decode()[-2000:]
+    assert left == []
