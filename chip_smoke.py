@@ -75,7 +75,15 @@ launch (added to its row), the dry run of internlm2-1.8b at full width
 and depth on meta held to the card's allocator -- a train step (4 x 512)
 and a decode token (4 x a 4096-token cache): the arguments' bytes within
 0.5% + 1 MiB, the peak printed beside its estimate -- and one full-size
-roofline analysis; it launches none of the kernels.  Worker processes
+roofline analysis; it launches none of the kernels.  ``analysis`` runs
+the port's analysis CLI (``python -m repro_torch.analysis --strict``) on
+the card in a process of its own -- the scheme checks and the staging
+contracts over 30 captured programs, the fused-decode kernel launched as
+often as the plans say -- and holds the CLI geometry's block_sparse
+product on the card against the CPU's; ``examples`` runs each of the six
+``examples/*_torch.py`` on the card, a process each (``train_lm_torch.py``
+at lm-100m's full width, 20 steps), to its OK line, and reads the kernel
+launches of each.  Worker processes
 start from a fork server and re-import this script: nothing at its
 module level touches the card.
 Each phase prints one JSON line; the line before the last lists the
@@ -2614,6 +2622,190 @@ def _on_card(tree, kind: str, dev: torch.device, vocab: int):
     return dryrun._map(leaf, tree)
 
 
+# ------------------------------- phase 12 -----------------------------------
+
+# the analysis CLI's contracts layer (``repro_torch.analysis.contracts``):
+# every device-capable scheme at the JAX package's CLI geometry, dense_scan
+# and block_sparse in both decode layouts, plus one one-launch program a
+# scheme -- 30 programs, each captured after a warm apply
+ANALYSIS_PROGRAMS, ANALYSIS_TIMEOUT_S = 30, 300
+# the CLI geometry's block_sparse C on the card against the CPU's (the
+# kernel's slot loop against the plain version's einsum), relative to
+# max|C|: f32 sums of at most L * bs = 48 terms of coded products with
+# weights up to (mn)^2 = 16, decoded with cond(M) up to ~10
+ANALYSIS_RTOL = 1e-4
+
+
+def analysis_predicted_launches() -> int:
+    """Row 1's launches in the analysis CLI's run, worked out from the
+    plans: each scheme's three block_sparse programs (replicated,
+    out_sharded, one-launch) are a warm apply and a captured one, one
+    launch a worker each."""
+    from repro_torch.analysis.contracts import FREE_WORKERS, GEOMETRY
+    from repro_torch.coded import get_scheme, scheme_names
+
+    total = 0
+    for name in scheme_names():
+        sch = get_scheme(name)
+        try:
+            plan = sch.plan(GEOMETRY["m"], GEOMETRY["n"],
+                            None if sch.fixed_workers else FREE_WORKERS, seed=GEOMETRY["seed"])
+        except ValueError:
+            continue  # no device plan (mds)
+        total += 3 * 2 * plan.num_workers
+    return total
+
+
+def _analysis_card_vs_cpu(dev: torch.device) -> dict:
+    """The CLI geometry's block_sparse apply (the fused-decode kernel at s =
+    32, bt = 12, smaller than any other launch here) on the card against
+    the same op on the CPU, and against the dense product, per scheme."""
+    from repro_torch.analysis.contracts import FREE_WORKERS, GEOMETRY
+    from repro_torch.coded import CodedMatmulConfig, from_plan, get_scheme, scheme_names
+    from repro_torch.sparse.blocksparse import dense_to_block_ell
+
+    m, n, s, bs = (GEOMETRY[k] for k in ("m", "n", "s", "bs"))
+    rng = np.random.default_rng(0)  # run_contract_checks's operands
+    A = rng.standard_normal((s, 8 * m)).astype(np.float32)
+    A *= np.kron(rng.random((s // bs, 8 * m // bs)) < 0.5, np.ones((bs, bs), np.float32))
+    B = rng.standard_normal((s, 12 * n)).astype(np.float32)
+    ell = dense_to_block_ell(A, block_size=bs)
+    dense = torch.from_numpy(A).double().T @ torch.from_numpy(B).double()
+    out = {}
+    for name in scheme_names():
+        sch = get_scheme(name)
+        try:
+            plan = sch.plan(m, n, None if sch.fixed_workers else FREE_WORKERS,
+                            seed=GEOMETRY["seed"])
+        except ValueError:
+            continue
+        op = from_plan(CodedMatmulConfig(backend="block_sparse"), plan)
+        card = op.bind(dev)(A, B, a_sparse=ell).cpu()
+        cpu = op.bind("cpu")(A, B, a_sparse=ell)
+        scale = float(cpu.abs().max())
+        out[name] = {"vs_cpu": float((card - cpu).abs().max()) / scale,
+                     "vs_dense": float((card.double() - dense).abs().max()) / scale}
+        check(out[name]["vs_cpu"] <= ANALYSIS_RTOL and out[name]["vs_dense"] <= E2E_RTOL,
+              f"analysis: {name}'s block_sparse C at the CLI geometry: {out[name]}")
+    return out
+
+
+def phase_analysis(dev: torch.device) -> dict:
+    """``python -m repro_torch.analysis --strict --json -`` on the card in a
+    subprocess: exit 0, every layer checked (the schemes and the 30
+    programs), no finding, and the fused-decode kernel launched as often as
+    the plans say and no other kernel; then the CLI geometry's C on the card
+    against the CPU.  Returns the subprocess's launch counts."""
+    from repro_torch.coded import scheme_names
+
+    cmd = [sys.executable, "-m", "repro_torch.analysis", "--strict", "--json", "-",
+           *([] if dev.type == "cuda" else ["--device", "cpu"])]
+    t0 = time.perf_counter()
+    proc = subprocess.run(cmd, capture_output=True, text=True, timeout=ANALYSIS_TIMEOUT_S,
+                          env=dict(os.environ, PYTHONPATH=str(ROOT / "src")))
+    cli_s = time.perf_counter() - t0
+    check(proc.returncode == 0,
+          f"analysis: exit {proc.returncode}: {proc.stdout[-3000:]} {proc.stderr[-3000:]}")
+    report = json.loads(proc.stdout)
+    want = {"schemes": len(scheme_names()), "contracts": ANALYSIS_PROGRAMS}
+    check(report["checked"] == want and report["findings"] == [],
+          f"analysis: checked {report['checked']} (want {want}), findings {report['findings']}")
+    launches, predicted = report["launches"], analysis_predicted_launches()
+    expected = {name: (predicted if name == "spmm_block_fused_decode" else 0)
+                for name in launches}
+    check(launches == expected if dev.type == "cuda" else not any(launches.values()),
+          f"analysis: launches {launches}, predicted {expected}")
+    t0 = time.perf_counter()
+    errs = _analysis_card_vs_cpu(dev)
+    emit(phase="analysis", checked=report["checked"], findings=len(report["findings"]),
+         launches=launches, predicted_spmm_block_fused_decode=predicted, cli_s=cli_s,
+         card_vs_cpu={"rtol": ANALYSIS_RTOL, "by_scheme": errs,
+                      "seconds": time.perf_counter() - t0})
+    return launches
+
+
+# ------------------------------- phase 13 -----------------------------------
+
+# the six examples' counterparts, each a process of its own on the card:
+# its arguments, its time limit, and the start of its last line
+# (train_lm_torch.py: lm-100m at full width, 20 steps, one checkpoint and
+# one coded checkpoint at step 20)
+EXAMPLE_RUNS = {
+    "quickstart": ([], 300, "OK"),
+    "straggler_sim": ([], 300, "straggler never blocked the coded run: OK"),
+    "chaos_demo": ([], 300, "killed worker 1 mid-chunk; decoded from survivors: OK"),
+    "serve_demo": ([], 300, "OK: all requests completed exactly"),
+    "train_lm": (["--steps", "20"], 600, "OK: trained lm-100m to step 20"),
+    "coded_checkpoint_demo": ([], 300, "OK: checkpoint survived losing 4/14 storage targets"),
+}
+# runs an example as its main module and then prints the kernels' launch
+# counts of its process (the examples print none of their own)
+_EXAMPLE_RUNNER = """\
+import json, runpy, sys
+sys.argv = sys.argv[1:]
+try:
+    runpy.run_path(sys.argv[0], run_name="__main__")
+finally:
+    from repro_torch.kernels import coded_accum, spmm_block
+    print("LAUNCHES " + json.dumps({**spmm_block.LAUNCHES, **coded_accum.LAUNCHES}))
+"""
+
+
+def _pool_helpers() -> dict[int, str]:
+    """Every process on the machine that is a multiprocessing fork server
+    or resource tracker, pid -> command line."""
+    out = {}
+    for entry in pathlib.Path("/proc").iterdir():
+        if not entry.name.isdigit():
+            continue
+        try:
+            cmd = (entry / "cmdline").read_bytes().replace(b"\0", b" ").decode(errors="replace")
+        except OSError:  # ended while being read
+            continue
+        if "multiprocessing.forkserver" in cmd or "multiprocessing.resource_tracker" in cmd:
+            out[int(entry.name)] = cmd[:120]
+    return out
+
+
+def phase_examples(dev: torch.device) -> dict:
+    """Each ``examples/*_torch.py`` as a process of its own on the card: exit
+    0 and its OK line, its seconds, the kernel launches of its process, and
+    no pool helper of its left behind (an example's fork server is not this
+    script's descendant once the example has exited).  Returns the
+    launches summed over the examples."""
+    import tempfile
+
+    before = _pool_helpers()
+    env = dict(os.environ, PYTHONPATH=str(ROOT / "src"))
+    out, total = {}, {}
+    for stem, (args, timeout, ok) in EXAMPLE_RUNS.items():
+        with tempfile.TemporaryDirectory(prefix=f"{stem}_") as tmp:
+            extra = ["--ckpt-dir", tmp] if stem == "train_lm" else []
+            cmd = [sys.executable, "-c", _EXAMPLE_RUNNER,
+                   str(ROOT / "examples" / f"{stem}_torch.py"), *args, *extra,
+                   *([] if dev.type == "cuda" else ["--device", "cpu"])]
+            t0 = time.perf_counter()
+            proc = subprocess.run(cmd, capture_output=True, text=True, timeout=timeout,
+                                  env=env, cwd=ROOT)
+            seconds = time.perf_counter() - t0
+        lines = proc.stdout.strip().splitlines()
+        check(proc.returncode == 0 and len(lines) >= 2 and lines[-1].startswith("LAUNCHES ")
+              and lines[-2].startswith(ok),
+              f"examples: {stem} exit {proc.returncode}: {proc.stdout[-3000:]} "
+              f"{proc.stderr[-3000:]}")
+        launches = json.loads(lines[-1].removeprefix("LAUNCHES "))
+        for name, count in launches.items():
+            total[name] = total.get(name, 0) + count
+        deadline = time.perf_counter() + 10.0
+        while (left := {p: c for p, c in _pool_helpers().items() if p not in before}) \
+                and time.perf_counter() < deadline:
+            time.sleep(0.05)
+        check(not left, f"examples: {stem} left pool helpers running: {left}")
+        out[stem] = {"seconds": seconds, "ok_line": lines[-2], "launches": launches}
+    emit(phase="examples", **out)
+    return total
+
+
 def _descendants() -> dict[int, str]:
     """This process's live descendants, pid -> command line, from /proc (a
     zombie, which goes with its parent, is left out)."""
@@ -2843,6 +3035,9 @@ def main() -> int:
         torch.cuda.empty_cache()
     _, by_path["proc_job"] = timed("proc_job", lambda: _counted(lambda: phase_proc_job(paper)))
     _, by_path["proc_mux"] = timed("proc_mux", lambda: _counted(lambda: phase_proc_mux(paper)))
+    # processes of their own: each reports its own launches
+    by_path["analysis"] = timed("analysis", lambda: phase_analysis(dev))
+    by_path["examples"] = timed("examples", lambda: phase_examples(dev))
     timed("stop_workers", phase_stop_workers)
     del paper
     torch.cuda.empty_cache()
@@ -2851,7 +3046,7 @@ def main() -> int:
     emit(phase="seconds", **seconds, total=round(sum(seconds.values()), 2))
     check(not _descendants(), f"processes still running: {_descendants()}")
     for path in ("schemes", "serving", "train", "families", "proc_job",
-                 "proc_mux", "launch"):  # they run none of the kernels
+                 "proc_mux", "examples", "launch"):  # they run none of the kernels
         check(not any(by_path[path].values()), f"{path} launched {by_path[path]}")
     for row in kernels:  # each path's counts, read on their own, and their sum
         row["launches_by_path"] = {"main": row["launches"], **{

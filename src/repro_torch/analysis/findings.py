@@ -1,7 +1,8 @@
-"""Finding/report model of the port's scheme checks.
+"""Finding/report model of the port's analysis.
 
 A *finding* is one violated (or suspicious) invariant, located as precisely
-as the check can manage: scheme findings point at the registered builder.
+as the check can manage: scheme findings point at the function registered
+for the scheme, contract findings at ``stage_coded_matmul``.
 A ``Report`` aggregates findings and derives an exit code from them.
 
 Severity policy: ``error`` findings always fail the run; ``warning``
@@ -24,12 +25,12 @@ WARNING = "warning"
 class Finding:
     """One violated invariant, with a file:line anchor."""
 
-    rule: str        # e.g. "compat-boundary", "recovery-threshold"
+    rule: str        # e.g. "recovery-threshold", "one-launch-epilogue"
     severity: str    # ERROR | WARNING
     path: str        # repo-relative path of the anchor
     line: int        # 1-based; 0 when the finding has no single line
     message: str
-    layer: str       # "lint" | "schemes" | "jaxpr"
+    layer: str       # "schemes" | "contracts"
 
     def __post_init__(self):
         if self.severity not in (ERROR, WARNING):

@@ -13,15 +13,33 @@ operands on the CPU go to the plain PyTorch version (``kernels.ref``).
 There is no other lane and no override: a CUDA tensor never takes the plain
 version.  The shape contracts the JAX package enforces (``s % s_chunk``,
 ``t % t_tile``, ``s % bs``) raise the same ``ValueError`` on both lanes.
+
+Each call is one unit to a program capture (``KERNEL_SCOPE``), on both
+lanes, as a ``pallas_call`` is one equation of a staged JAX program.
 """
 
 from __future__ import annotations
+
+import contextvars
+from functools import partial
 
 import torch
 
 from repro_torch.kernels import coded_accum as _accum_kernel
 from repro_torch.kernels import ref
 from repro_torch.kernels import spmm_block as _spmm_kernel
+
+#: the program capture recording in this context
+#: (``repro_torch.analysis.contracts.ProgramCapture``), or None.  Under one,
+#: an entry point's call is recorded as one record -- its name, operands and
+#: output -- and the ops it runs inside are not recorded one by one.  The
+#: scope changes no result: the same lane runs the same code.
+KERNEL_SCOPE: contextvars.ContextVar = contextvars.ContextVar("kernel_scope", default=None)
+
+
+def _scoped(name: str, operands: tuple, run):
+    capture = KERNEL_SCOPE.get()
+    return run() if capture is None else capture.kernel(name, operands, run)
 
 
 def _lane(*tensors: torch.Tensor) -> str:
@@ -37,9 +55,11 @@ def _lane(*tensors: torch.Tensor) -> str:
 def spmm_block_fused(vals, src, wslot, B, *, bt: int, t_tile: int = 128):
     """One worker's coded local product, (CB * bs, bt) f32."""
     if _lane(vals, src, wslot, B) == "cuda":
-        return _spmm_kernel.spmm_block_fused(vals, src, wslot, B, bt=bt,
-                                             t_tile=t_tile)
-    return ref.spmm_block_fused_ref(vals, src, wslot, B, bt)
+        run = partial(_spmm_kernel.spmm_block_fused, vals, src, wslot, B, bt=bt,
+                      t_tile=t_tile)
+    else:
+        run = partial(ref.spmm_block_fused_ref, vals, src, wslot, B, bt)
+    return _scoped("spmm_block_fused", (vals, src, wslot, B), run)
 
 
 def spmm_block_fused_decode(vals, src, wslot, dvec, B, *, bt: int,
@@ -51,9 +71,11 @@ def spmm_block_fused_decode(vals, src, wslot, dvec, B, *, bt: int,
     product, ready for the sum over workers.
     """
     if _lane(vals, src, wslot, dvec, B) == "cuda":
-        return _spmm_kernel.spmm_block_fused_decode(vals, src, wslot, dvec, B,
-                                                    bt=bt, t_tile=t_tile)
-    return ref.spmm_block_fused_decode_ref(vals, src, wslot, dvec, B, bt)
+        run = partial(_spmm_kernel.spmm_block_fused_decode, vals, src, wslot, dvec, B,
+                      bt=bt, t_tile=t_tile)
+    else:
+        run = partial(ref.spmm_block_fused_decode_ref, vals, src, wslot, dvec, B, bt)
+    return _scoped("spmm_block_fused_decode", (vals, src, wslot, dvec, B), run)
 
 
 def spmm_block(vals, idx, B, *, t_tile: int = 128):
@@ -66,8 +88,10 @@ def spmm_block(vals, idx, B, *, t_tile: int = 128):
     if s % bs:
         raise ValueError(f"s={s} not divisible by block size {bs}")
     if _lane(vals, idx, B) == "cuda":
-        return _spmm_kernel.spmm_block(vals, idx, B, t_tile=t_tile)
-    return ref.spmm_block_ref(vals, idx, B)
+        run = partial(_spmm_kernel.spmm_block, vals, idx, B, t_tile=t_tile)
+    else:
+        run = partial(ref.spmm_block_ref, vals, idx, B)
+    return _scoped("spmm_block", (vals, idx, B), run)
 
 
 def coded_accum(A, B, cols, weights, *, m: int, n: int, s_chunk: int = 128):
@@ -80,5 +104,7 @@ def coded_accum(A, B, cols, weights, *, m: int, n: int, s_chunk: int = 128):
     if s % s_chunk:
         raise ValueError(f"s={s} not divisible by s_chunk={s_chunk}")
     if _lane(A, B, cols, weights) == "cuda":
-        return _accum_kernel.coded_accum(A, B, cols, weights, m=m, n=n)
-    return ref.coded_accum_ref(A, B, cols, weights, m, n)
+        run = partial(_accum_kernel.coded_accum, A, B, cols, weights, m=m, n=n)
+    else:
+        run = partial(ref.coded_accum_ref, A, B, cols, weights, m, n)
+    return _scoped("coded_accum", (A, B, cols, weights), run)

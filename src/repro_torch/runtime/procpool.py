@@ -54,7 +54,8 @@ Start-up is kept out of the job's clock.  A ``ProcPool`` worker receives
 its operands, puts them on the device, says hello and then waits for
 ``go``, which the master sends once every worker said hello or ended
 (``timeout`` bounds the wait); ``MuxProcPool.start`` waits for every hello
-before a batch is sent.  Spawn-to-hello times are reported apart
+before a batch is sent.  The master opens its own device before ``go``
+(``_warm_device``), since it moves every arriving chunk there.  Spawn-to-hello times are reported apart
 (``decode_stats["startup"]``).
 
 Wire format (pickled tuples; per worker one simplex pipe each way).
@@ -242,21 +243,31 @@ class _Outbox:
 
 # ------------------------------- worker side --------------------------------
 
+def _warm_device(dev: torch.device) -> None:
+    """One small dense and one small CSR product on ``dev``, synchronised:
+    CUDA's context and its library handles exist after it.  The workers
+    make them before their hello, the master after the hellos and before
+    ``go``: the master
+    moves every arriving chunk to the device, and a context made then
+    (over a second on an H100) would hold the arrivals back until the
+    workers' streams had all come in, and be counted as compute."""
+    eye = torch.eye(2, device=dev)
+    eye @ eye
+    csr = eye.to_sparse_csr()
+    csr @ csr
+    synchronize(dev)
+
+
 def _open_device(device: str) -> torch.device:
-    """The worker's device, opened with one small dense and one small CSR
-    product, so CUDA's context and its library handles are made before the
-    worker says hello.  Raises where the device cannot be opened."""
+    """The worker's device, opened (``_warm_device``) before the worker says
+    hello.  Raises where the device cannot be opened."""
     # torch's once-per-process notices, which every worker would repeat
     warnings.filterwarnings("ignore", "Sparse CSR tensor support is in beta")
     warnings.filterwarnings("ignore", "Sparse invariant checks are implicitly")
     dev = torch.device(device)
     if dev.type == "cpu":
         torch.set_num_threads(1)  # the pool's workers share the host's cores
-    eye = torch.eye(2, device=dev)
-    eye @ eye
-    csr = eye.to_sparse_csr()
-    csr @ csr
-    synchronize(dev)
+    _warm_device(dev)
     return dev
 
 
@@ -407,6 +418,7 @@ class ProcPool:
             for conn in mp_connection.wait(list(conns), timeout=_POLL):
                 for _ in self._drain(conns[conn], time.perf_counter()):
                     pass  # no chunk comes before "go"
+        _warm_device(self.device)
         self._t0 = time.perf_counter()
         self.startup["go_s"] = self._t0 - t_spawn
         for st in self._workers.values():
@@ -758,6 +770,7 @@ class MuxProcPool:
                         self._sever(w)
                         continue
                     self._on_control(w, msg)
+            _warm_device(self.device)
         except RuntimeError:
             self.close()
             raise

@@ -1,8 +1,8 @@
 """The port's boundary: no JAX, no ``repro``, no hidden CPU carry-on.
 
-* every ``repro_torch`` module, ``chip_smoke`` and ``chip_variants`` import
-  in a process where ``jax``, ``ml_dtypes`` and ``repro`` cannot be
-  imported at all;
+* every ``repro_torch`` module, ``chip_smoke``, ``chip_variants`` and the
+  ``examples/*_torch.py`` import in a process where ``jax``, ``ml_dtypes``
+  and ``repro`` cannot be imported at all;
 * no port file names them;
 * ``bind()`` with no CUDA device raises instead of running on the CPU, and
   so do the runtime's entry points (``run_coded_job``, ``run_live_job``,
@@ -34,6 +34,7 @@ torch = pytest.importorskip("torch")
 
 ROOT = pathlib.Path(__file__).resolve().parents[1]
 PORT = ROOT / "src" / "repro_torch"
+EXAMPLES = sorted((ROOT / "examples").glob("*_torch.py"))
 
 _IMPORT_ALL = r"""
 import importlib, pkgutil, sys
@@ -47,6 +48,10 @@ for name in names:
     importlib.import_module(name)
 import chip_smoke
 import chip_variants
+import importlib.util, pathlib
+for path in sorted(pathlib.Path(sys.argv[2], "examples").glob("*_torch.py")):
+    spec = importlib.util.spec_from_file_location(path.stem, path)
+    spec.loader.exec_module(importlib.util.module_from_spec(spec))
 from repro_torch import CodedMatmulConfig, CodedOp, plan
 leaked = sorted(m for m in sys.modules if sys.modules[m] is not None and (
     m.split(".")[0] in ("jax", "jaxlib", "ml_dtypes", "repro")))
@@ -71,7 +76,7 @@ _FORBIDDEN = re.compile(
 @pytest.mark.parametrize("path", sorted(
     str(p.relative_to(ROOT)) for p in
     [*PORT.rglob("*.py"), *PORT.rglob("*.cu"), ROOT / "chip_smoke.py",
-     ROOT / "chip_variants.py"]))
+     ROOT / "chip_variants.py", *EXAMPLES]))
 def test_port_sources_name_no_jax_and_no_repro(path):
     text = (ROOT / path).read_text()
     hits = [m.group(0) for m in _FORBIDDEN.finditer(text)]
@@ -251,6 +256,35 @@ def test_launch_entry_points_without_cuda_raise_unless_asked_for_the_cpu(name):
         with pytest.raises(RuntimeError, match="no CUDA device"):
             call(device)
     assert call("cpu") is not None
+
+
+def _load_example(path):
+    import importlib.util
+
+    from repro_torch.configs import ARCH_REGISTRY
+
+    spec = importlib.util.spec_from_file_location(f"boundary_{path.stem}", path)
+    module = importlib.util.module_from_spec(spec)
+    try:
+        spec.loader.exec_module(module)
+    finally:
+        ARCH_REGISTRY.pop("lm-100m", None)  # train_lm_torch registers its config
+    return module
+
+
+@pytest.mark.parametrize("name", ["analysis", *(p.stem for p in EXAMPLES)])
+def test_cli_and_examples_without_cuda_raise_unless_asked_for_the_cpu(name):
+    """The CPU runs of each are in test_torch_analysis_contracts.py and
+    test_torch_examples.py."""
+    if torch.cuda.is_available():
+        pytest.skip("a CUDA device is present: the card is meant to be used")
+    if name == "analysis":
+        from repro_torch.analysis.__main__ import main
+    else:
+        main = _load_example(ROOT / "examples" / f"{name}.py").main
+    for argv in ([], ["--device", "cuda"]):
+        with pytest.raises(RuntimeError, match="no CUDA device"):
+            main(argv)
 
 
 def test_importing_serving_loads_neither_the_model_nor_torch():

@@ -390,6 +390,41 @@ def test_worker_that_cannot_open_the_device_ends_the_job():
 MUX_WORKERS = 8
 
 
+@pytest.mark.parametrize("kind", ["ProcPool", "MuxProcPool"])
+def test_master_opens_its_device_before_the_job_starts(kind, monkeypatch):
+    """The master moves each arriving chunk to its device.  Opened only
+    then, a card's device (its CUDA context: over a second on an H100)
+    holds the first arrivals back until every worker's stream has come in,
+    so the job decodes from whichever pipe is drained first -- before a
+    fault's trigger is read -- and the context counts as compute.  Both
+    pools open the master's device once, after their workers' hellos and
+    before ``go``."""
+    order = []
+    warm, put = procpool._warm_device, procpool._Outbox.put
+    monkeypatch.setattr(procpool, "_warm_device",
+                        lambda dev: (order.append(("warm", dev)), warm(dev))[1])
+    monkeypatch.setattr(procpool._Outbox, "put",
+                        lambda self, msg: (order.append((msg[0], None)), put(self, msg))[1])
+    if kind == "ProcPool":
+        A, B = _data()
+        pool = procpool.ProcPool(schemes.uncoded(M_SPLIT, N_SPLIT), 1,
+                                 split_blocks(A, M_SPLIT), split_blocks(B, N_SPLIT),
+                                 N_SPLIT, device="cpu")
+        try:
+            pool.start(60.0)
+        finally:
+            pool.shutdown()
+        kinds = [k for k, _ in order]
+        assert "go" in kinds and kinds.index("warm") < kinds.index("go")
+    else:
+        pool = MuxProcPool(2, device="cpu")
+        try:
+            pool.start()
+        finally:
+            pool.close()
+    assert [dev for k, dev in order if k == "warm"] == [torch.device("cpu")]
+
+
 @pytest.fixture(scope="module")
 def proc_mux():
     """One pool of worker processes for the module's mux tests; worker 1 is
