@@ -41,7 +41,14 @@ a CUDA context of its own, in the live job's case, without a fault, and
 with each fault class (kill, pause, slow, drop_result: each checked to
 have fired and the job to decode, beside ``FaultRealization``'s
 prediction), a respawn and an unrecoverable kill; ``proc_mux`` one
-``JobMux`` batch over a ``MuxProcPool`` with worker 1 killed; ``schemes``
+``JobMux`` batch over a ``MuxProcPool`` with worker 1 killed;
+``group_job`` runs ``run_group_job`` at the main path's full width with
+one worker a process: 8 ranks of a gloo process group sharing the card,
+each launching the fused-decode kernel over its own worker's tiles and
+combining by a ``torch.distributed`` collective (replicated all alive and
+with a dead worker, ``out_sharded`` all alive), C held to the one-process
+apply's and to the dense product, each rank's kernel, collective and
+apply times printed with the card's memory; ``schemes``
 the port's scheme checks over the registry and on the main path's
 full-size pack.  ``serving`` drives the serving port at the full width of
 qwen3-moe-30b-a3b (4 of its 48 layers): one layer on the card against the
@@ -78,8 +85,9 @@ and a decode token (4 x a 4096-token cache): the arguments' bytes within
 roofline analysis; it launches none of the kernels.  ``analysis`` runs
 the port's analysis CLI (``python -m repro_torch.analysis --strict``) on
 the card in a process of its own -- the scheme checks and the staging
-contracts over 30 captured programs, the fused-decode kernel launched as
-often as the plans say -- and holds the CLI geometry's block_sparse
+contracts over 54 captured programs, 24 of them in the ranks of a gloo
+worker group, the fused-decode kernel launched as often as the plans say
+-- and holds the CLI geometry's block_sparse
 product on the card against the CPU's; ``examples`` runs each of the six
 ``examples/*_torch.py`` on the card, a process each (``train_lm_torch.py``
 at lm-100m's full width, 20 steps), to its OK line, and reads the kernel
@@ -147,6 +155,11 @@ LIVE_SPIN_CYCLES = 10**9  # the card's spin before in-flight inputs are made (~0
 # past the job (the deadline is not what these cases exercise)
 PROC_Q, PROC_SLEEP_S, PROC_FAULTED_SLEEP_S, PROC_DEADLINE_S = 4, 2.0, 0.2, 10.0
 PROC_TIMEOUT_S = 300.0  # start-up (28 processes, each its own CUDA context) included
+# the worker group (phase group_job): the main path's operands with one
+# worker a process, 8 ranks of a gloo group on the one card; each rank's
+# C against the one-process apply's, relative to max|C| (the same plan and
+# tiles, the sum over the workers in gloo's ring order)
+GROUP_BACKEND, GROUP_REPEATS, GROUP_TIMEOUT_S, GROUP_RTOL = "gloo", 3, 300.0, 1e-6
 # decoded blocks against the true block products, relative to max|block|:
 # the decode runs in f32 with code weights up to (mn)^2 = 256 and rooting
 # coefficients from a float64 solve, so it rounds at ~eps * cond; the
@@ -2585,6 +2598,85 @@ def phase_proc_mux(paper: dict) -> None:
          startup=_startup(list(pool.startup.values())), rtol=DECODE_RTOL)
 
 
+# ------------------------------ phase 10b -----------------------------------
+
+def group_job_inputs(full: dict) -> dict:
+    """What ``group_job`` needs of the main path, on the host, so the card
+    is free of the one-process operands when the ranks start: A, B, the
+    block-ELL, the plan, and the one-process applies' C (all alive; the
+    main path's dead worker) and the dense product."""
+    from repro_torch.coded import CodedMatmulConfig, from_plan
+
+    A, B, ell, pl = full["A"], full["B"], full["ell"], full["plan"]
+    op = from_plan(CodedMatmulConfig(backend="block_sparse", block_size=BS), pl).bind()
+    dead = np.ones(WORKERS, dtype=bool)
+    dead[full["dead"]] = False
+    one = {"alive": op(A, B, a_sparse=ell).cpu(),
+           "dead": op.with_survivors(dead)(A, B, a_sparse=ell).cpu()}
+    return {"A": A.cpu().numpy(), "B": B.cpu().numpy(), "ell": ell, "plan": pl,
+            "dead": full["dead"], "dead_mask": dead, "one_process": one,
+            "ref_C": full["ref_C"].cpu()}
+
+
+def phase_group_job(inputs: dict, smi: str) -> dict:
+    """``run_group_job`` at the main path's full width: 8 rank processes of a
+    gloo group on the card, rank k launching the fused-decode kernel over
+    worker k's tiles and the ranks combining by one collective, in three
+    configurations (replicated all alive, replicated with the main path's
+    dead worker, out_sharded all alive).  Each: C within GROUP_RTOL of the
+    one-process apply's and within E2E_RTOL of the dense product, one
+    fused-decode launch a rank an apply (each rank's own count), and a line
+    with every rank's kernel, collective and apply times, the card's memory
+    at its peak across the ranks' contexts and the card's name and power
+    limit.  Returns the ranks' launches, summed."""
+    from repro_torch.runtime import run_group_job
+
+    ref, scale = inputs["ref_C"], float(inputs["ref_C"].abs().max())
+    configs = (("replicated, all alive", False, None, "alive"),
+               (f"replicated, worker {inputs['dead']} dead", False, inputs["dead_mask"], "dead"),
+               ("out_sharded, all alive", True, None, "alive"))
+    total = {}
+    applies = 1 + GROUP_REPEATS  # the warm-up and the timed repeats
+    for name, sharded, mask, one_key in configs:
+        mem = {}
+        t0 = time.perf_counter()
+        with _card_memory_watch(mem):
+            rep = run_group_job(inputs["A"], inputs["B"], inputs["plan"], backend=GROUP_BACKEND,
+                                out_sharded=sharded, survivors=mask, repeats=GROUP_REPEATS,
+                                a_sparse=inputs["ell"], timeout=GROUP_TIMEOUT_S)
+        wall_s = time.perf_counter() - t0
+        (C,) = rep.blocks
+        check(tuple(C.shape) == (R, T) and C.device.type == "cuda",
+              f"group_job {name}: C {tuple(C.shape)} on {C.device}")
+        C = C.cpu()
+        check(bool(torch.isfinite(C).all()), f"group_job {name}: non-finite C")
+        one = inputs["one_process"][one_key]
+        vs_one = float((C - one).abs().max()) / float(one.abs().max())
+        vs_dense = float((C - ref).abs().max()) / scale
+        del C
+        check(vs_one <= GROUP_RTOL, f"group_job {name}: {vs_one} of max|C| from the "
+                                    f"one-process apply > {GROUP_RTOL}")
+        check(vs_dense <= E2E_RTOL, f"group_job {name}: rel err {vs_dense} > {E2E_RTOL}")
+        stats = rep.decode_stats
+        for rank in stats["ranks"]:
+            got = {k: v for k, v in rank["launches"].items() if v}
+            check(got == {"spmm_block_fused_decode": applies},
+                  f"group_job {name}: rank {rank['rank']} launched {got}, want "
+                  f"{applies} fused-decode (one an apply)")
+            for k, v in rank["launches"].items():
+                total[k] = total.get(k, 0) + v
+        emit(phase="group_job", config=name, ranks=stats["group"], backend=stats["backend"],
+             collective_path=stats["collective_path"], out_sharded=sharded,
+             repeats=GROUP_REPEATS, wall_s=wall_s, apply_ms_slowest_rank=rep.total_time * 1e3,
+             rel_err_vs_one_process=vs_one, rtol_one_process=GROUP_RTOL,
+             rel_err_vs_dense=vs_dense, rtol=E2E_RTOL, card_peak_bytes=mem["peak_bytes"],
+             nvidia_smi=smi,
+             by_rank=[{k: rank[k] for k in ("rank", "kernel_ms", "collective_ms", "apply_ms",
+                                            "samples", "max_memory_allocated", "shard_shape")}
+                      for rank in stats["ranks"]])
+    return total
+
+
 # ------------------------------- phase 11 -----------------------------------
 
 LAUNCH_ARCH = "internlm2-1.8b"
@@ -2628,7 +2720,7 @@ def _on_card(tree, kind: str, dev: torch.device, vocab: int):
 # every device-capable scheme at the JAX package's CLI geometry, dense_scan
 # and block_sparse in both decode layouts, plus one one-launch program a
 # scheme -- 30 programs, each captured after a warm apply
-ANALYSIS_PROGRAMS, ANALYSIS_TIMEOUT_S = 30, 300
+ANALYSIS_PROGRAMS, ANALYSIS_TIMEOUT_S = 54, 300
 # the CLI geometry's block_sparse C on the card against the CPU's (the
 # kernel's slot loop against the plain version's einsum), relative to
 # max|C|: f32 sums of at most L * bs = 48 terms of coded products with
@@ -2640,7 +2732,10 @@ def analysis_predicted_launches() -> int:
     """Row 1's launches in the analysis CLI's run, worked out from the
     plans: each scheme's three block_sparse programs (replicated,
     out_sharded, one-launch) are a warm apply and a captured one, one
-    launch a worker each."""
+    launch a worker each; in the ranks of its worker group, its two
+    block_sparse programs (one a layout) are the same two applies, one
+    launch a rank, on every one of the group's FREE_WORKERS ranks (a
+    fixed-worker scheme runs on each of the subgroups that tile them)."""
     from repro_torch.analysis.contracts import FREE_WORKERS, GEOMETRY
     from repro_torch.coded import get_scheme, scheme_names
 
@@ -2652,7 +2747,7 @@ def analysis_predicted_launches() -> int:
                             None if sch.fixed_workers else FREE_WORKERS, seed=GEOMETRY["seed"])
         except ValueError:
             continue  # no device plan (mds)
-        total += 3 * 2 * plan.num_workers
+        total += 3 * 2 * plan.num_workers + 2 * 2 * FREE_WORKERS
     return total
 
 
@@ -2692,8 +2787,8 @@ def _analysis_card_vs_cpu(dev: torch.device) -> dict:
 
 def phase_analysis(dev: torch.device) -> dict:
     """``python -m repro_torch.analysis --strict --json -`` on the card in a
-    subprocess: exit 0, every layer checked (the schemes and the 30
-    programs), no finding, and the fused-decode kernel launched as often as
+    subprocess: exit 0, every layer checked (the schemes and the 54
+    programs, 24 in the ranks of its gloo worker group), no finding, and the fused-decode kernel launched as often as
     the plans say and no other kernel; then the CLI geometry's C on the card
     against the CPU.  Returns the subprocess's launch counts."""
     from repro_torch.coded import scheme_names
@@ -3025,6 +3120,7 @@ def main() -> int:
     by_path = {"device_job": timed("device_job", lambda: phase_device_job(full))}
     _, by_path["schemes"] = timed("schemes", lambda: _counted(lambda: phase_schemes(full)))
     paper = timed("straggler_job", lambda: phase_straggler_job(full, dev))
+    group_inputs = timed("group_job_inputs", lambda: group_job_inputs(full))
     del full
     torch.cuda.empty_cache()
     timed("live_job", lambda: phase_live_job(paper))
@@ -3036,6 +3132,9 @@ def main() -> int:
     _, by_path["proc_job"] = timed("proc_job", lambda: _counted(lambda: phase_proc_job(paper)))
     _, by_path["proc_mux"] = timed("proc_mux", lambda: _counted(lambda: phase_proc_mux(paper)))
     # processes of their own: each reports its own launches
+    by_path["group_job"] = timed("group_job", lambda: phase_group_job(
+        group_inputs, info["nvidia_smi"]))
+    del group_inputs
     by_path["analysis"] = timed("analysis", lambda: phase_analysis(dev))
     by_path["examples"] = timed("examples", lambda: phase_examples(dev))
     timed("stop_workers", phase_stop_workers)
@@ -3048,6 +3147,10 @@ def main() -> int:
     for path in ("schemes", "serving", "train", "families", "proc_job",
                  "proc_mux", "examples", "launch"):  # they run none of the kernels
         check(not any(by_path[path].values()), f"{path} launched {by_path[path]}")
+    want = 3 * WORKERS * (1 + GROUP_REPEATS)  # configurations x ranks x applies
+    check({k: v for k, v in by_path["group_job"].items() if v}
+          == {"spmm_block_fused_decode": want},
+          f"group_job launched {by_path['group_job']}, want {want} fused-decode")
     for row in kernels:  # each path's counts, read on their own, and their sum
         row["launches_by_path"] = {"main": row["launches"], **{
             path: counts.get(row["name"], 0) for path, counts in by_path.items()}}

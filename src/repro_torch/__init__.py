@@ -18,7 +18,9 @@ PyTorch versions.
 
 ``run_device_job(A, B, plan, device=None, backend=...)`` times that apply
 (warm-up outside, CUDA events per repeat) and returns an
-``ExecutionReport``.  The paper's master/worker straggler runtime --
+``ExecutionReport``; ``run_group_job(A, B, plan, backend="gloo")`` runs it
+with one worker a process over a ``torch.distributed`` group, the JAX
+package's mesh axis.  The paper's master/worker straggler runtime --
 ``run_coded_job``, ``run_live_job`` and ``JobMux`` in
 ``repro_torch.runtime``, decoding with the hybrid peeling/rooting decoder
 of ``repro_torch.core.decoder`` -- follows the same device rule: ``None``
@@ -35,6 +37,7 @@ __all__ = [
     "get_scheme",
     "plan",
     "run_device_job",
+    "run_group_job",
     "scheme_names",
 ]
 
@@ -44,6 +47,7 @@ _HOMES = {
     "from_plan": "repro_torch.coded.op",
     "plan": "repro_torch.coded.op",
     "run_device_job": "repro_torch.runtime.executor",
+    "run_group_job": "repro_torch.runtime.executor",
     "get_scheme": "repro_torch.coded.registry",
     "scheme_names": "repro_torch.coded.registry",
 }

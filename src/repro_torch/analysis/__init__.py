@@ -7,7 +7,8 @@
   ``validate_scheme``, ``validate_pack``);
 * ``repro_torch.analysis.contracts`` -- the structural contracts of the
   staged coded matmul (nnz-proportional staging, the decode in the
-  kernel's epilogue, the worker sum, f32 only, a byte budget) on programs
+  kernel's epilogue, the worker sum -- or, in a rank of a worker group,
+  one collective over that group --, f32 only, a byte budget) on programs
   captured with a ``TorchDispatchMode`` (``run_contract_checks``);
 * ``repro_torch.analysis.findings`` -- the ``Finding``/``Report`` model.
 

@@ -10,8 +10,10 @@ human-readable ``file:line`` findings, and exits nonzero on violations:
 The contracts layer captures every registered scheme's coded matmul
 through the real ``CodedOp`` path on ``--device``: the CUDA card by
 default (raising where there is none), or ``cpu``, where the kernels'
-plain versions run.  The schemes layer is host only.  ``--json`` adds the
-kernels' launch counts of the run (``launches``) to the report.
+plain versions run -- in this process, and one worker a process in the
+ranks of a gloo worker group on the same device, whose programs it counts
+too.  The schemes layer is host only.  ``--json`` adds the kernels' launch
+counts of the run, the ranks' included (``launches``), to the report.
 """
 
 from __future__ import annotations
@@ -23,10 +25,11 @@ import sys
 LAYERS = ("schemes", "contracts")
 
 
-def _json(report) -> str:
+def _json(report, rank_launches: dict) -> str:
     from repro_torch.analysis.contracts import launch_counts
 
-    return json.dumps({**report.as_dict(), "launches": launch_counts()},
+    launches = {k: v + rank_launches.get(k, 0) for k, v in launch_counts().items()}
+    return json.dumps({**report.as_dict(), "launches": launches},
                       indent=2, sort_keys=True)
 
 
@@ -53,6 +56,7 @@ def main(argv: list[str] | None = None) -> int:
 
     device = resolve_device(args.device)
     report = Report()
+    rank_launches: dict = {}
     if "schemes" in layers:
         from repro_torch.analysis.schemes import run_scheme_checks
 
@@ -62,17 +66,17 @@ def main(argv: list[str] | None = None) -> int:
     if "contracts" in layers:
         from repro_torch.analysis.contracts import run_contract_checks
 
-        findings, programs = run_contract_checks(device)
+        findings, programs = run_contract_checks(device, rank_launches)
         report.extend(findings)
         report.checked["contracts"] = programs
 
     if args.json == "-":
-        print(_json(report))
+        print(_json(report, rank_launches))
     else:
         print(report.render())
         if args.json:
             with open(args.json, "w") as fh:
-                fh.write(_json(report) + "\n")
+                fh.write(_json(report, rank_launches) + "\n")
     return report.exit_code(strict=args.strict)
 
 

@@ -21,17 +21,22 @@ program, so they are checked without reading a value:
   decode combine rides the kernel's epilogue: no ``(mn, br, *)`` product
   outside a kernel record, and a kernel record that emits the
   ``(mn, br, bt)`` stack;
-* ``worker_combines`` -- the program sums a stack of all N workers'
-  contributions into C: on one card, the counterpart of the reference's
-  "no collective" check (the axis half of its ``collective-axis`` rule
-  needs a process group);
+* ``worker_combines`` -- a one-process program sums a stack of all N
+  workers' contributions into C: its counterpart of the reference's "no
+  collective" check;
+* ``collectives`` / ``collective_axis_offenders`` -- a rank's program of a
+  worker group (``stage_coded_matmul(..., group=...)``) joins exactly one
+  collective, of its decode layout's kind, over the worker group and no
+  other: the reference's ``collective-axis`` rule, with the c10d ops that
+  ``torch.distributed`` dispatches standing for its psum and psum_scatter;
 * ``float64_offenders`` -- the pipeline is f32 end to end;
 * ``peak_equation_bytes`` -- per-record operand + output bytes, held to
   ``nnz_proportional_budget`` (the reference's arithmetic).
 
 Each detector has a sensitivity probe (``assert_*_sensitivity``): a
 program built the legacy way, which it must flag.  ``run_contract_checks``
-runs every probe before the live programs, so a blind detector fails the
+runs every probe before the live programs (the collective probe in the
+ranks of the group, before their programs), so a blind detector fails the
 run.  Every pass returns plain offender records; callers (tests, the CLI)
 decide between asserting and emitting findings.
 """
@@ -45,6 +50,7 @@ from typing import Iterator
 
 import numpy as np
 import torch
+import torch.distributed as dist
 from torch.utils._python_dispatch import TorchDispatchMode
 from torch.utils._pytree import tree_flatten
 
@@ -69,6 +75,19 @@ class OpRecord:
     inputs: tuple[Aval, ...]
     outputs: tuple[Aval, ...]
     kernel: bool = False
+    group: str | None = None   # a collective's process group, by name
+
+
+def _group_name(args) -> str | None:
+    """The name of the process group a c10d op's arguments name (its other
+    script objects, such as the reduce op, are not groups)."""
+    for arg in args:
+        if isinstance(arg, torch.ScriptObject):
+            try:
+                return dist.ProcessGroup.unbox(arg).group_name
+            except RuntimeError:
+                continue
+    return None
 
 
 def _avals(tree) -> tuple[Aval, ...]:
@@ -89,8 +108,9 @@ class ProgramCapture(TorchDispatchMode):
         kwargs = kwargs or {}
         out = func(*args, **kwargs)
         if not self._in_kernel:
-            self.records.append(OpRecord(str(func), func.overloadpacket.__name__,
-                                         _avals((args, kwargs)), _avals(out)))
+            self.records.append(OpRecord(
+                str(func), func.overloadpacket.__name__, _avals((args, kwargs)), _avals(out),
+                group=_group_name(args) if func.namespace == "c10d" else None))
         return out
 
     def kernel(self, name: str, operands: tuple, run):
@@ -294,6 +314,78 @@ def assert_combine_detector_sensitivity(num_workers: int, mn: int, br: int, bt: 
             "lost sensitivity")
 
 
+# ------------------------ pass: collective axes (a rank) ---------------------
+
+#: the collective each decode layout combines with, as its c10d op reaches
+#: dispatch (the reference's psum and psum_scatter)
+LAYOUT_COLLECTIVES = {"all_reduce": "allreduce_", "reduce_scatter": "reduce_scatter_"}
+
+
+def layout_of(out_sharded: bool) -> str:
+    return "reduce_scatter" if out_sharded else "all_reduce"
+
+
+def collectives(program) -> list[tuple[str, str | None]]:
+    """(op, group name) of every collective record of the program."""
+    return [(rec.op, rec.group) for rec in program if rec.name.startswith("c10d.")]
+
+
+def collective_axis_offenders(program, group: str) -> list[tuple[str, str | None]]:
+    """Collectives over any process group but ``group`` (by name)."""
+    return [(op, g) for op, g in collectives(program) if g != group]
+
+
+def collective_axis_problems(program, *, group: str, layout: str,
+                             axis_name: str = "model") -> list[str]:
+    """What breaks the ``collective-axis`` rule in a rank's program: a
+    collective over a group other than the worker group, and anything but
+    exactly one collective of ``layout``'s kind."""
+    out = []
+    bad = collective_axis_offenders(program, group)
+    if bad:
+        out.append(f"collectives over groups other than the worker axis {axis_name!r} "
+                   f"(process group {group!r}): {bad}")
+    found = collectives(program)
+    if not found:
+        out.append("no collective in the staged program: worker contributions are "
+                   "never combined")
+    elif [op for op, _ in found] != [LAYOUT_COLLECTIVES[layout]]:
+        out.append(f"the {layout} layout combines with exactly one {layout}, the "
+                   f"program has {found}")
+    return out
+
+
+def wrong_group_combine(contrib: torch.Tensor, group) -> torch.Tensor:
+    """A worker's contribution all-reduced over ``group``, which is not its
+    worker group -- the collective detector's sensitivity probe, never an
+    execution path."""
+    dist.all_reduce(contrib, group=group)
+    return contrib
+
+
+def uncombined(contrib: torch.Tensor) -> torch.Tensor:
+    """A worker's contribution returned as C with no collective -- the
+    collective detector's other probe, never an execution path."""
+    return contrib.clone()
+
+
+def assert_collective_detector_sensitivity(worker_group, other_group, mn: int, br: int,
+                                           bt: int, *, device="cpu") -> None:
+    """Prove ``collective_axis_problems`` flags an all-reduce over a group
+    that is not the worker group, and a program with no collective.  Every
+    rank of ``other_group`` calls it."""
+    contrib = torch.zeros((mn, br, bt), device=device)
+    wrong, _ = capture(wrong_group_combine, contrib, other_group)
+    alone, _ = capture(uncombined, contrib)
+    for what, program in (("an all-reduce over another group", wrong),
+                          ("a program with no collective", alone)):
+        if not collective_axis_problems(program, group=worker_group.group_name,
+                                        layout="all_reduce"):
+            raise AssertionError(
+                f"program capture failed to flag {what}: the collective-axis "
+                "detector has lost sensitivity")
+
+
 # ----------------------------- pass: dtype policy ----------------------------
 
 def float64_offenders(program) -> list[tuple[str, tuple, str]]:
@@ -408,8 +500,14 @@ def _staging_anchor() -> tuple[str, int]:
 
 
 def verify_staged_program(program, *, num_workers: int, stacked_rows: int | None,
-                          byte_budget: int | None, context: str) -> list[Finding]:
-    """Run every applicable pass over one captured program; findings only."""
+                          byte_budget: int | None, context: str, group: str | None = None,
+                          layout: str = "all_reduce",
+                          axis_name: str = "model") -> list[Finding]:
+    """Run every applicable pass over one captured program; findings only.
+
+    ``group`` (a process group's name) marks a rank's program of a worker
+    group, held to ``collective-axis`` for its ``layout``; a one-process
+    program (None) is held to ``worker-combine``."""
     path, line = _staging_anchor()
 
     def finding(rule, message, severity=ERROR):
@@ -424,7 +522,10 @@ def verify_staged_program(program, *, num_workers: int, stacked_rows: int | None
                 "no-dense-materialization",
                 f"program materializes {stacked_rows}-row intermediates "
                 f"(max_degree * s): {offenders[:3]}"))
-    if not worker_combines(program, num_workers):
+    if group is not None:
+        out.extend(finding("collective-axis", problem) for problem in collective_axis_problems(
+            program, group=group, layout=layout, axis_name=axis_name))
+    elif not worker_combines(program, num_workers):
         out.append(finding(
             "worker-combine",
             f"no sum over the {num_workers} workers' contributions in the "
@@ -450,25 +551,153 @@ def verify_staged_program(program, *, num_workers: int, stacked_rows: int | None
 #: count to fall short of)
 GEOMETRY = dict(m=2, n=2, s=32, bs=8, seed=5)
 FREE_WORKERS = 8
+#: the worker group's programs: ranks of one gloo group of FREE_WORKERS,
+#: the fixed-worker schemes each on a subgroup of their N ranks
+GROUP_BACKEND = "gloo"
+GROUP_TIMEOUT_S = 300.0
 
 
-def run_contract_checks(device) -> tuple[list[Finding], int]:
+def _cli_operands():
+    """The live programs' A, B (numpy) and A's block-ELL."""
+    from repro_torch.sparse.blocksparse import dense_to_block_ell
+
+    m, n, s, bs = (GEOMETRY[k] for k in ("m", "n", "s", "bs"))
+    rng = np.random.default_rng(0)
+    r, t = 8 * m, 12 * n
+    A_np = rng.standard_normal((s, r)).astype(np.float32)
+    mask = rng.random((s // bs, r // bs)) < 0.5
+    A_np *= np.kron(mask, np.ones((bs, bs), np.float32))
+    B_np = rng.standard_normal((s, t)).astype(np.float32)
+    return A_np, B_np, dense_to_block_ell(A_np, block_size=bs)
+
+
+def _device_plans() -> list[tuple[str, object]]:
+    """(scheme name, plan) of every device-capable registered scheme."""
+    from repro_torch.coded import get_scheme, scheme_names
+
+    m, n = GEOMETRY["m"], GEOMETRY["n"]
+    out = []
+    for name in scheme_names():
+        sch = get_scheme(name)
+        try:
+            plan = sch.plan(m, n, None if sch.fixed_workers else FREE_WORKERS,
+                            seed=GEOMETRY["seed"])
+        except ValueError:
+            continue  # not device-capable (e.g. mds): nothing to stage
+        out.append((name, plan))
+    return out
+
+
+class _Checker:
+    """Captures live programs on one device and verifies each."""
+
+    def __init__(self, device: torch.device, A_np, B_np, ell):
+        self.device = device
+        self.A = torch.from_numpy(A_np).to(device)
+        self.B = torch.from_numpy(B_np).to(device)
+        self.ell = ell
+        self.path, self.line = _staging_anchor()
+        self.findings: list[Finding] = []
+        self.programs = 0
+
+    def captured(self, op, kw, context):
+        program, launches = capture_apply(op, self.A, self.B, **kw)
+        if self.device.type == "cuda":
+            bad = kernel_launch_offenders(program, launches)
+            if bad:
+                self.findings.append(Finding(
+                    rule="kernel-scope", severity=ERROR, path=self.path, line=self.line,
+                    layer=LAYER, message=f"{context}: kernel records disagree with "
+                                         f"the launches (kernel, records, launches): {bad}"))
+        return program
+
+    def staged(self, name, plan, group=None):
+        """Every backend x layout program of one plan; with ``group``, this
+        rank's programs of the worker group."""
+        from repro_torch.coded import CodedMatmulConfig, from_plan
+        from repro_torch.core.coded_matmul import pack_worker_tiles
+
+        m, n, s = GEOMETRY["m"], GEOMETRY["n"], GEOMETRY["s"]
+        r, t = self.A.shape[1], self.B.shape[1]
+        budget = nnz_proportional_budget(plan, pack_worker_tiles(self.ell, plan), s, r, t)
+        for backend in ("dense_scan", "block_sparse"):
+            kw = {"a_sparse": self.ell} if backend == "block_sparse" else {}
+            for out_sharded in (False, True):
+                cfg = CodedMatmulConfig(backend=backend, out_sharded=out_sharded)
+                op = from_plan(cfg, plan).bind(self.device, group=group)
+                context = f"scheme={name} backend={backend} out_sharded={out_sharded}"
+                if group is not None:
+                    context += (f" {cfg.axis_name}=rank {dist.get_rank(group)} of "
+                                f"{dist.get_world_size(group)}")
+                # max_degree == 1 would make the stacked row count collide
+                # with the operands' own (s, ...) shapes: nothing to detect
+                self.findings.extend(verify_staged_program(
+                    self.captured(op, kw, context), num_workers=plan.num_workers,
+                    stacked_rows=(plan.max_degree * s if backend == "block_sparse"
+                                  and plan.max_degree > 1 else None),
+                    byte_budget=budget if backend == "block_sparse" else None,
+                    context=context,
+                    group=None if group is None else group.group_name,
+                    layout=layout_of(out_sharded), axis_name=cfg.axis_name))
+                self.programs += 1
+                if backend != "block_sparse" or out_sharded or group is not None:
+                    continue
+                # the one-launch contract, on the program's own lane: the
+                # kernel scope records the launch on both
+                context = f"scheme={name} backend={backend} one-launch"
+                self.findings.extend(verify_fused_epilogue(
+                    self.captured(op, kw, context), mn=m * n, br=r // m, context=context))
+                self.programs += 1
+
+
+def _group_programs_rank(device, A_np, B_np, ell, plans) -> dict:
+    """One rank of the worker group's programs: the collective probe first,
+    then this rank's program of every plan x backend x layout, over the
+    world group or, for a plan of fewer workers, over the subgroup of
+    consecutive ranks that holds this rank.  Returns its findings, its
+    count of programs and its process's kernel launches (warm applies
+    included)."""
+    world = dist.group.WORLD
+    rank, size = dist.get_rank(), dist.get_world_size()
+    # every rank makes every subgroup, in the same order (new_group's rule)
+    tilings = {N: [dist.new_group(list(range(i, i + N))) for i in range(0, size, N)]
+               for N in sorted({size // 2, *(p.num_workers for _, p in plans)})
+               if N < size and size % N == 0}
+    checker = _Checker(device, A_np, B_np, ell)
+    try:
+        assert_collective_detector_sensitivity(
+            tilings[size // 2][rank // (size // 2)], world, 4, 8, 12, device=device)
+    except AssertionError as exc:
+        checker.findings.append(Finding(rule="collective-axis", severity=ERROR,
+                                        path=checker.path, line=checker.line,
+                                        layer=LAYER, message=f"rank {rank}: {exc}"))
+        return {"findings": checker.findings, "programs": 0, "launches": {}}
+    for name, plan in plans:
+        N = plan.num_workers
+        group = world if N == size else tilings[N][rank // N]
+        checker.staged(name, plan, group=group)
+    return {"findings": checker.findings, "programs": checker.programs,
+            "launches": launch_counts()}
+
+
+def run_contract_checks(device, launches_out: dict | None = None) -> tuple[list[Finding], int]:
     """Capture coded matmuls for every device-capable registered scheme
     across backends x decode layouts on ``device``, and verify each
-    program; plus one one-launch program for each scheme's block_sparse.
-    Returns (findings, programs_verified).  On a CUDA device each program's
-    kernel records are also held to the launches it made."""
-    from repro_torch.coded import CodedMatmulConfig, from_plan, get_scheme, scheme_names
-    from repro_torch.core.coded_matmul import pack_worker_tiles
-    from repro_torch.sparse.blocksparse import dense_to_block_ell
+    program; plus one one-launch program for each scheme's block_sparse;
+    then each such scheme's backend x layout programs in the ranks of a
+    gloo worker group of ``FREE_WORKERS`` (``runtime.workergroup``), rank 0's
+    counted.  Returns (findings, programs_verified).  On a CUDA device each
+    program's kernel records are also held to the launches it made.
+    ``launches_out``, where given, gets the ranks' kernel launches (this
+    process's are ``launch_counts()``)."""
+    from repro_torch.runtime.workergroup import spawn_group
 
     device = torch.device(device)
     path, line = _staging_anchor()
     findings: list[Finding] = []
-    programs = 0
 
     # detector self-tests first: a blind detector must fail the run, not
-    # silently bless it
+    # silently bless it (the collective probe runs first in each rank)
     probes = (
         ("no-dense-materialization",
          lambda: assert_detector_sensitivity(6, 32, 2, 12, device=device)),
@@ -485,60 +714,26 @@ def run_contract_checks(device) -> tuple[list[Finding], int]:
         except AssertionError as exc:
             findings.append(Finding(rule=rule, severity=ERROR, path=path, line=line,
                                     layer=LAYER, message=str(exc)))
-            return findings, programs
+            return findings, 0
 
-    m, n, s, bs = (GEOMETRY[k] for k in ("m", "n", "s", "bs"))
-    rng = np.random.default_rng(0)
-    r, t = 8 * m, 12 * n
-    br = r // m
-    A_np = rng.standard_normal((s, r)).astype(np.float32)
-    mask = rng.random((s // bs, r // bs)) < 0.5
-    A_np *= np.kron(mask, np.ones((bs, bs), np.float32))
-    B_np = rng.standard_normal((s, t)).astype(np.float32)
-    ell = dense_to_block_ell(A_np, block_size=bs)
-    A = torch.from_numpy(A_np).to(device)
-    B = torch.from_numpy(B_np).to(device)
+    A_np, B_np, ell = _cli_operands()
+    plans = _device_plans()
+    ranks = []
+    if plans:
+        ranks = spawn_group(_group_programs_rank, FREE_WORKERS, backend=GROUP_BACKEND,
+                            device=device, timeout=GROUP_TIMEOUT_S,
+                            args=(A_np, B_np, ell, plans))
+        for rank in ranks:
+            findings.extend(rank["findings"])
+        if launches_out is not None:
+            for rank in ranks:
+                for k, v in rank["launches"].items():
+                    launches_out[k] = launches_out.get(k, 0) + v
+        if any(f.rule == "collective-axis" and "lost sensitivity" in f.message
+               for f in findings):
+            return findings, 0
 
-    def checked(op, kw, context):
-        program, launches = capture_apply(op, A, B, **kw)
-        if device.type == "cuda":
-            bad = kernel_launch_offenders(program, launches)
-            if bad:
-                findings.append(Finding(
-                    rule="kernel-scope", severity=ERROR, path=path, line=line,
-                    layer=LAYER, message=f"{context}: kernel records disagree with "
-                                         f"the launches (kernel, records, launches): {bad}"))
-        return program
-
-    for name in scheme_names():
-        sch = get_scheme(name)
-        N = m * n if sch.fixed_workers else FREE_WORKERS
-        try:
-            plan = sch.plan(m, n, None if sch.fixed_workers else N, seed=GEOMETRY["seed"])
-        except ValueError:
-            continue  # not device-capable (e.g. mds): nothing to stage
-        budget = nnz_proportional_budget(plan, pack_worker_tiles(ell, plan), s, r, t)
-        for backend in ("dense_scan", "block_sparse"):
-            kw = {"a_sparse": ell} if backend == "block_sparse" else {}
-            for out_sharded in (False, True):
-                cfg = CodedMatmulConfig(backend=backend, out_sharded=out_sharded)
-                op = from_plan(cfg, plan).bind(device)
-                context = f"scheme={name} backend={backend} out_sharded={out_sharded}"
-                # max_degree == 1 would make the stacked row count collide
-                # with the operands' own (s, ...) shapes: nothing to detect
-                findings.extend(verify_staged_program(
-                    checked(op, kw, context), num_workers=plan.num_workers,
-                    stacked_rows=(plan.max_degree * s if backend == "block_sparse"
-                                  and plan.max_degree > 1 else None),
-                    byte_budget=budget if backend == "block_sparse" else None,
-                    context=context))
-                programs += 1
-                if backend != "block_sparse" or out_sharded:
-                    continue
-                # the one-launch contract, on the program's own lane: the
-                # kernel scope records the launch on both
-                context = f"scheme={name} backend={backend} one-launch"
-                findings.extend(verify_fused_epilogue(
-                    checked(op, kw, context), mn=m * n, br=br, context=context))
-                programs += 1
-    return findings, programs
+    checker = _Checker(device, A_np, B_np, ell)
+    for name, plan in plans:
+        checker.staged(name, plan)
+    return findings + checker.findings, checker.programs + (ranks[0]["programs"] if ranks else 0)

@@ -5,7 +5,10 @@
   ``CodedMatmulPlan``) and returns an unbound ``CodedOp``;
 * **bind**   -- ``op.bind(device)`` attaches a torch device: the CUDA card
   by default (raising where there is none), or ``"cpu"``, where the
-  kernels' plain PyTorch versions run instead;
+  kernels' plain PyTorch versions run instead; ``op.bind(device, group=g)``
+  also attaches a ``torch.distributed`` process group of
+  ``num_workers`` ranks -- the JAX package's mesh axis -- so each rank
+  runs its own worker and the ranks combine with one collective;
 * **apply**  -- ``op(A, B)`` runs the coded product on that device.  Backend
   dispatch, BlockELL packing, and the pack cache all live here;
 * **rebind** -- ``op.with_survivors(mask)`` re-derives the decode matrix
@@ -21,6 +24,7 @@ import dataclasses
 
 import numpy as np
 import torch
+import torch.distributed as dist
 
 from repro_torch.coded import registry
 from repro_torch.coded.config import CodedMatmulConfig
@@ -57,13 +61,25 @@ class CodedOp:
     survivors: np.ndarray | None = None
     device: torch.device | None = None
     chunk_progress: np.ndarray | None = None  # (N,) chunks completed, if partial
+    #: the worker axis as a process group (``config.axis_name`` names it);
+    #: None: every worker runs in this process
+    group: object | None = None
 
     # ------------------------------ lifecycle -------------------------------
 
-    def bind(self, device=None) -> "CodedOp":
+    def bind(self, device=None, group=None) -> "CodedOp":
         """Attach a torch device: ``None`` means the CUDA card, and raises
-        when there is none; pass ``"cpu"`` to run on the CPU."""
-        return dataclasses.replace(self, device=resolve_device(device))
+        when there is none; pass ``"cpu"`` to run on the CPU.  ``group``, a
+        ``torch.distributed`` process group this process is a rank of, must
+        have one rank per worker (checked here, once); each rank then runs
+        its own worker (``repro_torch.runtime.workergroup``)."""
+        if group is not None:
+            size = dist.get_world_size(group)
+            if size != self.plan_.num_workers:
+                raise ValueError(
+                    f"worker group {self.config.axis_name}={size} ranks != plan "
+                    f"workers {self.plan_.num_workers}")
+        return dataclasses.replace(self, device=resolve_device(device), group=group)
 
     def with_survivors(self, survivors) -> "CodedOp":
         """Rebind to a liveness mask (replaces any previous mask).
@@ -166,16 +182,21 @@ class CodedOp:
                 A, self.base_plan, pack=pack, a_sparse=a_sparse,
                 block_size=cfg.block_size, compute_dtype=cfg.compute_dtype,
                 num_workers=N, s=s, r=r, br=br)
+            # a rank holds only its own worker's tiles
+            workers = (None if self.group is None
+                       else (dist.get_rank(self.group),))
             # a pack made from A for this call alone is not worth a cache
             # entry (it would pin device memory nobody asks for again)
-            dpack = (DeviceTilePack.from_pack(pack, self.device) if transient
-                     else pack_cache.device_pack(pack, self.device))
+            dpack = (DeviceTilePack.from_pack(pack, self.device, workers) if transient
+                     else pack_cache.device_pack(pack, self.device, workers))
         return stage_coded_matmul(
             A, B, self.plan_,
             alive=self.survivors,
             out_dtype=cfg.torch_dtype,
             backend=backend,
-            pack=dpack)
+            pack=dpack,
+            group=self.group,
+            out_sharded=cfg.out_sharded)
 
     __call__ = apply
 
@@ -199,11 +220,14 @@ class CodedOp:
                 else int(self.survivors.sum()))
         chunks = ("" if self.chunk_progress is None
                   else f", chunk_progress={self.chunk_progress.tolist()}")
+        group = ("" if self.group is None
+                 else f", {self.config.axis_name}=rank {dist.get_rank(self.group)}"
+                      f" of {dist.get_world_size(self.group)}")
         return (f"CodedOp(scheme={self.config.scheme!r}, "
                 f"backend={self.config.backend!r}, "
                 f"m={self.plan_.m}, n={self.plan_.n}, "
                 f"workers={self.num_workers}, "
-                f"survivors={surv}{chunks}, device={self.device})")
+                f"survivors={surv}{chunks}, device={self.device}{group})")
 
 
 def plan(config: CodedMatmulConfig, m: int, n: int,

@@ -17,9 +17,15 @@ The paper's master/worker protocol, with every worker on one card:
   finishes the product.
 
 The JAX package runs one worker per mesh device and sums with a psum
-(or a psum_scatter for ``out_sharded``).  Here the N workers run one after
-the other on one device and their (mn, br, bt) contributions are summed in
-worker order; both decode layouts are then the same sum and give the same C.
+(or a psum_scatter for ``out_sharded``).  Here, with no process group, the
+N workers run one after the other on one device and their (mn, br, bt)
+contributions are summed in worker order; both decode layouts are then the
+same sum and give the same C.  With a process group of N ranks
+(``repro_torch.runtime.workergroup``), rank k runs worker k alone and the
+contributions are combined by an ``all_reduce`` (replicated C) or a
+``reduce_scatter`` over the block dim padded to a multiple of N
+(``out_sharded``: rank k keeps its 1/N of the blocks; ``gather_blocks``
+reads C back), as the reference's psum and psum_scatter do.
 
 Local-compute backends:
 
@@ -36,12 +42,14 @@ Local-compute backends:
 
 from __future__ import annotations
 
+import contextvars
 import dataclasses
 import warnings
 
 import numpy as np
 import scipy.sparse as sp
 import torch
+import torch.distributed as dist
 
 from repro_torch.core import coded_backends
 from repro_torch.core.decoder import DecodingError, decode_matrix
@@ -343,21 +351,30 @@ def pack_worker_tiles(a_sparse: BlockELL, plan: CodedMatmulPlan,
 class DeviceTilePack:
     """A ``WorkerTilePack``'s arrays on one device: what the kernels read.
 
-    Made once per (pack, device) (``repro_torch.runtime.pack_cache``), the
-    eager counterpart of the JAX package capturing the pack as constants
-    of the staged program.
+    Made once per (pack, device, worker set) (``repro_torch.runtime.
+    pack_cache``), the eager counterpart of the JAX package capturing the
+    pack as constants of the staged program.  A rank of a worker group
+    holds only its own worker's tiles (``workers=(k,)``).
     """
 
-    vals: torch.Tensor                 # (N, CBl, Lw, bs, bs)
-    src: torch.Tensor                  # (N, CBl, Lw, 2) int32
-    wslot: torch.Tensor                # (N, CBl, Lw) f32
-    slot_of: torch.Tensor              # (N, CBl, Lw) int64
-    tile_scale: torch.Tensor | None    # (N, CBl, Lw) f32, int8 packs only
+    vals: torch.Tensor                 # (W, CBl, Lw, bs, bs)
+    src: torch.Tensor                  # (W, CBl, Lw, 2) int32
+    wslot: torch.Tensor                # (W, CBl, Lw) f32
+    slot_of: torch.Tensor              # (W, CBl, Lw) int64
+    tile_scale: torch.Tensor | None    # (W, CBl, Lw) f32, int8 packs only
     block_size: int
+    #: the workers whose tiles this copy holds, in order (None: all N)
+    workers: tuple[int, ...] | None = None
+
+    def row(self, k: int) -> int:
+        """Where worker k's tiles lie in this copy."""
+        return k if self.workers is None else self.workers.index(k)
 
     @classmethod
-    def from_pack(cls, pack: WorkerTilePack,
-                  device: torch.device) -> "DeviceTilePack":
+    def from_pack(cls, pack: WorkerTilePack, device: torch.device,
+                  workers=None) -> "DeviceTilePack":
+        """``pack`` on ``device``: every worker's tiles, or only those of
+        ``workers`` (a sequence of worker ids)."""
         if pack.slot_of is None:
             # a pack without the tile->slot map cannot follow a chunk-masked
             # plan's weights; its baked-in base weights would be silently
@@ -365,8 +382,12 @@ class DeviceTilePack:
             raise ValueError(
                 "WorkerTilePack has no slot_of map; rebuild it with "
                 "pack_worker_tiles")
+        if workers is not None:
+            workers = tuple(int(k) for k in workers)
 
         def put(a, dtype=None):
+            if workers is not None:
+                a = a[list(workers)]
             return torch.as_tensor(a, dtype=dtype).to(device).contiguous()
 
         return cls(vals=put(pack.vals), src=put(pack.src),
@@ -374,7 +395,7 @@ class DeviceTilePack:
                    slot_of=put(pack.slot_of, torch.int64),
                    tile_scale=(None if pack.tile_scale is None
                                else put(pack.tile_scale)),
-                   block_size=pack.block_size)
+                   block_size=pack.block_size, workers=workers)
 
 
 def _host_f32(A) -> np.ndarray:
@@ -469,7 +490,8 @@ def _block_sparse_operands(plan: CodedMatmulPlan, pack: DeviceTilePack):
     w * (scale * tile_q) == (w * scale) * tile_q, so dequantizing is free.
     """
     w_cur = torch.as_tensor(plan.weights).to(pack.vals.device)     # (N, L)
-    k_idx = torch.arange(w_cur.shape[0], device=w_cur.device)[:, None, None]
+    k_idx = (torch.arange(w_cur.shape[0], device=w_cur.device) if pack.workers is None
+             else torch.tensor(pack.workers, device=w_cur.device))[:, None, None]
     wsl_all = torch.where(pack.wslot != 0.0, w_cur[k_idx, pack.slot_of], 0.0)
     if pack.tile_scale is not None:
         wsl_all = wsl_all * pack.tile_scale
@@ -481,7 +503,8 @@ def _make_block_sparse_local_product(plan: CodedMatmulPlan, pack: DeviceTilePack
 
     def local_product(k, A_, B_):
         # fused gather: tiles address the original B directly
-        return ops.spmm_block_fused(pack.vals[k], pack.src[k], wsl_all[k], B_,
+        i = pack.row(k)
+        return ops.spmm_block_fused(pack.vals[i], pack.src[i], wsl_all[i], B_,
                                     bt=B_.shape[1] // plan.n)
 
     return local_product
@@ -497,8 +520,9 @@ def _make_block_sparse_fused_decode(plan: CodedMatmulPlan, pack: DeviceTilePack)
     wsl_all = _block_sparse_operands(plan, pack)
 
     def local_product_decode(k, A_, B_, dvec):
-        return ops.spmm_block_fused_decode(pack.vals[k], pack.src[k],
-                                           wsl_all[k], dvec, B_,
+        i = pack.row(k)
+        return ops.spmm_block_fused_decode(pack.vals[i], pack.src[i],
+                                           wsl_all[i], dvec, B_,
                                            bt=B_.shape[1] // plan.n)
 
     return local_product_decode
@@ -527,6 +551,25 @@ def check_operands(A: torch.Tensor, B: torch.Tensor, plan: CodedMatmulPlan):
     return plan.num_workers, s, r, t, r // m, t // n
 
 
+#: a caller that times a group apply's parts sets this to a function of one
+#: name, called as the staged worker passes each mark: ``"local"`` once
+#: its local product is queued, ``"combined"`` once the collective has
+#: returned (``runtime.executor.run_group_job``); unset, nothing is called
+STAGE_MARK: contextvars.ContextVar = contextvars.ContextVar("STAGE_MARK", default=None)
+
+
+def _blocks_to_c(blocks: torch.Tensor, m: int, n: int) -> torch.Tensor:
+    """(mn, br, bt) decoded blocks -> C (m br, n bt), block (i, j) at i n + j."""
+    _, br, bt = blocks.shape
+    return blocks.reshape(m, n, br, bt).permute(0, 2, 1, 3).reshape(m * br, n * bt)
+
+
+def _mark(name: str) -> None:
+    mark = STAGE_MARK.get()
+    if mark is not None:
+        mark(name)
+
+
 def stage_coded_matmul(
     A: torch.Tensor,
     B: torch.Tensor,
@@ -536,6 +579,8 @@ def stage_coded_matmul(
     out_dtype: torch.dtype = torch.float32,
     backend: str = "dense_scan",
     pack: DeviceTilePack | None = None,
+    group=None,
+    out_sharded: bool = False,
 ) -> torch.Tensor:
     """Run one coded matmul on the operands' device: C = A^T B, (r, t).
 
@@ -543,6 +588,18 @@ def stage_coded_matmul(
     ``alive`` is the matching worker-liveness mask (None = all alive).  For
     backends with ``needs_pack``, ``pack`` is the device copy of a resolved
     pack (``resolve_pack`` then ``DeviceTilePack.from_pack``).
+
+    ``group=None``: every worker runs here, one after the other, and their
+    contributions are summed in worker order (``out_sharded`` changes
+    nothing: both layouts are that sum).  With a ``torch.distributed``
+    process group of N ranks, this process runs worker ``k =
+    dist.get_rank(group)`` alone (a dead worker's rank too, with a zero
+    decode column) and joins one collective over the group: an
+    ``all_reduce``, which gives every rank C; or, for ``out_sharded``, a
+    ``reduce_scatter`` of the block dim padded to ``mn_pad = ceil(mn/N) N``,
+    which leaves rank k its f32 blocks ``[k mn_pad/N, (k+1) mn_pad/N)`` --
+    the reference's ``out_specs=P(axis_name)`` layout -- and returns them
+    (``gather_blocks`` reads C back).
     """
     entry = coded_backends.get_backend(backend)
     if entry.virtual:
@@ -560,6 +617,10 @@ def stage_coded_matmul(
         raise ValueError(
             f"backend {backend!r} is registered but has no "
             "local_product_factory attached")
+    if group is not None and dist.get_world_size(group) != N:
+        raise ValueError(
+            f"process group of {dist.get_world_size(group)} ranks != plan "
+            f"workers {N}")
 
     alive_t = (torch.ones(N, dtype=torch.float32, device=dev) if alive is None
                else torch.as_tensor(np.asarray(alive, dtype=np.float32)).to(dev))
@@ -570,18 +631,46 @@ def stage_coded_matmul(
     else:
         local_product = entry.local_product_factory(plan, pack)
 
-    contribs = []
-    for k in range(N):
+    def contribution(k):
         dvec = D_t[:, k] * alive_t[k]      # survivor decode column, (mn,)
         if fuse:
             # one launch: the decode combine happens in the kernel epilogue
-            contribs.append(local_product_decode(k, A, B, dvec))
-        else:
-            Ct = local_product(k, A, B)
-            contribs.append(dvec[:, None, None] * Ct[None])
-    blocks = torch.stack(contribs).sum(dim=0)              # (mn, br, bt)
-    C = blocks.reshape(m, n, br, bt).permute(0, 2, 1, 3).reshape(m * br, n * bt)
-    return C.to(out_dtype)
+            return local_product_decode(k, A, B, dvec)
+        Ct = local_product(k, A, B)
+        return dvec[:, None, None] * Ct[None]
+
+    if group is None:
+        contribs = [contribution(k) for k in range(N)]
+        blocks = torch.stack(contribs).sum(dim=0)          # (mn, br, bt)
+        return _blocks_to_c(blocks, m, n).to(out_dtype)
+
+    contrib = contribution(dist.get_rank(group))           # (mn, br, bt)
+    _mark("local")
+    if out_sharded:
+        mn = m * n
+        mn_pad = -(-mn // N) * N  # scatter splits the block dim N ways
+        contrib = torch.nn.functional.pad(contrib, (0, 0, 0, 0, 0, mn_pad - mn))
+        shard = torch.empty((mn_pad // N, br, bt), dtype=contrib.dtype, device=dev)
+        # the list form: torch 2.11 and 2.13 both have it and deprecate
+        # neither it nor its op (2.13 deprecates reduce_scatter_tensor;
+        # 2.11 has no reduce_scatter_single)
+        dist.reduce_scatter(shard, list(contrib.chunk(N)), group=group)
+        _mark("combined")
+        return shard
+    dist.all_reduce(contrib, group=group)
+    _mark("combined")
+    return _blocks_to_c(contrib, m, n).to(out_dtype)
+
+
+def gather_blocks(shard: torch.Tensor, plan: CodedMatmulPlan, group) -> torch.Tensor:
+    """C (f32) from the ``out_sharded`` layout: every rank's shard gathered
+    over ``group`` (an ``all_gather``, the list form for the same reason as
+    the scatter's), the pad blocks dropped, the blocks assembled (the
+    reference's ``blocks[:mn]`` read-back).  Every rank of the group calls
+    it and gets C."""
+    parts = [torch.empty_like(shard) for _ in range(dist.get_world_size(group))]
+    dist.all_gather(parts, shard.contiguous(), group=group)
+    return _blocks_to_c(torch.cat(parts)[:plan.m * plan.n], plan.m, plan.n)
 
 
 def coded_matmul(A, B, plan: CodedMatmulPlan, device=None,

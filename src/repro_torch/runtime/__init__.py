@@ -6,13 +6,16 @@
 * ``run_coded_job`` (seeded event-driven simulation), ``run_live_job``
   (worker threads computing real products), ``JobMux`` / ``MuxJob`` /
   ``MuxResult`` (many jobs over one pool, ``"sim"``, ``"live"`` or a
-  ``MuxProcPool``) and ``run_device_job`` (a timed ``CodedOp`` apply),
-  each returning an ``ExecutionReport``;
+  ``MuxProcPool``), ``run_device_job`` (a timed ``CodedOp`` apply) and
+  ``run_group_job`` (the same with one worker a process, over a
+  ``torch.distributed`` group), each returning an ``ExecutionReport``;
 * the process runtime: ``run_proc_job`` / ``ProcPool`` (one job over
   worker processes that can be killed, frozen or slowed) and
   ``MuxProcPool``, with the fault plans of ``runtime.chaos``
   (``FaultPlan``, ``FaultLedger``, and ``FaultRealization``, the same plan
   on the simulator's timeline);
+* ``workergroup`` -- the worker axis as a process group: ``spawn_group``,
+  ``init_worker_group`` and the operands in shared memory;
 * ``pack_cache`` -- the worker tile packs and their device copies.
 
 Every entry point takes ``device=None``, which means the CUDA card and
@@ -30,9 +33,10 @@ _EXPORTS = {
         "ShiftedExponential"),
     "repro_torch.runtime.executor": (
         "ExecutionReport", "JobMux", "MuxJob", "MuxResult", "run_coded_job",
-        "run_device_job", "run_live_job"),
+        "run_device_job", "run_group_job", "run_live_job"),
     "repro_torch.runtime.chaos": ("FaultLedger", "FaultPlan", "FaultRealization"),
     "repro_torch.runtime.procpool": ("MuxProcPool", "ProcPool", "run_proc_job"),
+    "repro_torch.runtime.workergroup": ("SharedArrays", "init_worker_group", "spawn_group"),
 }
 
 _HOMES = {name: module for module, names in _EXPORTS.items() for name in names}

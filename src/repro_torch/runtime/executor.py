@@ -950,6 +950,7 @@ def run_device_job(
     repeats: int = 3,
     a_sparse=None,
     out_sharded: bool = False,
+    group=None,
 ) -> ExecutionReport:
     """One coded matmul on one device (a thin ``CodedOp`` wrapper).
 
@@ -964,7 +965,11 @@ def run_device_job(
     timed region; the report's time is the median of ``repeats`` applies,
     each timed with CUDA events on the card.  The decode is fused into the
     device work, so decode_wall_time is 0.  ``blocks`` holds C as the
-    device tensor, not a host copy.
+    device tensor, not a host copy.  Called in a rank of a worker group
+    with ``group`` (``repro_torch.runtime.workergroup``), it binds the op to
+    the group, so this rank runs its own worker and the time is its own
+    apply, collective included; with ``out_sharded`` the result is the
+    rank's shard of the blocks.
     """
     from repro_torch.coded import CodedMatmulConfig, from_plan
     from repro_torch.core.coded_matmul import _host_f32
@@ -972,7 +977,7 @@ def run_device_job(
     from repro_torch.sparse.blocksparse import dense_to_block_ell
 
     cfg = CodedMatmulConfig(backend=backend, out_sharded=out_sharded)
-    op = from_plan(cfg, plan).bind(device)
+    op = from_plan(cfg, plan).bind(device, group=group)
     if survivors is not None:
         op = op.with_survivors(survivors)
 
@@ -1011,4 +1016,155 @@ def run_device_job(
                       "on_device_decode": True, "out_sharded": out_sharded,
                       "pack_cache": pack_cache.cache_stats()},
         blocks=[result],
+    )
+
+
+# ------------------------- one worker a process ------------------------------
+
+_PACK_ARRAYS = ("vals", "src", "wslot", "slot_of", "live_tiles", "tile_scale")
+
+
+def _group_job_rank(device, shared, plan, cfg, survivors, repeats: int, pack_meta):
+    """One rank of ``run_group_job``: its worker's apply, timed in parts.
+
+    Maps the shared operands (and the host pack, whose tiles of this
+    rank's worker alone go to the device), binds the op to the world group,
+    runs one warm-up apply, then ``repeats`` applies, each started after a
+    barrier, with the staging's marks (``STAGE_MARK``) splitting each into
+    its local product and its collective.  Rank 0 writes C into the shared
+    output.  Returns plain numbers."""
+    import torch.distributed as dist
+
+    from repro_torch.coded import from_plan
+    from repro_torch.core.coded_matmul import STAGE_MARK, WorkerTilePack, gather_blocks
+    from repro_torch.kernels import coded_accum, spmm_block
+
+    def launch_counts():
+        return {**spmm_block.LAUNCHES, **coded_accum.LAUNCHES}
+
+    arrays = shared.open()
+    group = dist.group.WORLD
+    A = arrays["A"].to(device)
+    B = arrays["B"].to(device)
+    fields = {f: arrays.get(f"pack.{f}") for f in _PACK_ARRAYS}
+    kw = {"pack": WorkerTilePack(
+        vals=fields["vals"], block_size=pack_meta["block_size"],
+        compute_dtype=pack_meta["compute_dtype"],
+        **{f: (None if fields[f] is None else fields[f].numpy())
+           for f in ("src", "wslot", "slot_of", "live_tiles", "tile_scale")})}
+    op = from_plan(cfg, plan).bind(device, group=group)
+    if survivors is not None:
+        op = op.with_survivors(survivors)
+    cuda = device.type == "cuda"
+
+    def stamp():
+        if cuda:
+            event = torch.cuda.Event(enable_timing=True)
+            event.record()
+            return event
+        return time.perf_counter()
+
+    def ms(a, b) -> float:
+        return a.elapsed_time(b) if cuda else (b - a) * 1e3
+
+    before = launch_counts()
+    out = op.apply(A, B, **kw)  # warm-up: the device pack is made here
+    synchronize(device)
+    times = {"kernel_ms": [], "collective_ms": [], "apply_ms": []}
+    for _ in range(max(1, repeats)):
+        synchronize(device)
+        dist.barrier(group)
+        marks = {}
+        token = STAGE_MARK.set(lambda name: marks.__setitem__(name, stamp()))
+        try:
+            marks["start"] = stamp()
+            out = op.apply(A, B, **kw)
+            marks["end"] = stamp()
+        finally:
+            STAGE_MARK.reset(token)
+        synchronize(device)
+        times["kernel_ms"].append(ms(marks["start"], marks["local"]))
+        times["collective_ms"].append(ms(marks["local"], marks["combined"]))
+        times["apply_ms"].append(ms(marks["start"], marks["end"]))
+    launches = {k: v - before[k] for k, v in launch_counts().items()}
+    C = gather_blocks(out, op.plan_, group) if cfg.out_sharded else out
+    if dist.get_rank(group) == 0:
+        arrays["C"].copy_(C.to("cpu", torch.float32))
+    return {"rank": dist.get_rank(group), "shard_shape": list(out.shape),
+            **{k: float(np.median(v)) for k, v in times.items()},
+            "samples": times, "launches": launches,
+            "max_memory_allocated": (torch.cuda.max_memory_allocated(device)
+                                     if cuda else None)}
+
+
+def run_group_job(
+    A,
+    B,
+    plan,
+    *,
+    backend: str,
+    device=None,
+    out_sharded: bool = False,
+    survivors=None,
+    repeats: int = 3,
+    a_sparse=None,
+    timeout: float = 600.0,
+) -> ExecutionReport:
+    """The main path's coded matmul (``block_sparse``) with one worker a
+    process: ``plan.num_workers`` ranks of a ``torch.distributed`` group
+    (``backend`` "gloo" or "nccl", see ``repro_torch.runtime.workergroup``),
+    the counterpart of the JAX package's mesh program.
+
+    ``device`` is each rank's (None = the CUDA card, raising where there is
+    none; ``"cpu"``; nccl puts rank k on ``cuda:k``).  A, B and the host
+    tile pack (packed here, from ``a_sparse`` or A) reach the ranks once,
+    through shared memory.  Each rank runs a warm-up apply and then
+    ``repeats`` timed ones, their starts aligned by a barrier: its
+    ``kernel_ms`` (the local product), ``collective_ms`` (from its end to
+    the collective's) and ``apply_ms`` (the whole apply), each the median,
+    timed with CUDA events on the card (``decode_stats["ranks"]``).  The
+    report's time is the slowest rank's median apply.  ``blocks`` holds C
+    on ``device``: rank 0's replicated C, or for ``out_sharded`` the shards
+    gathered (``gather_blocks``).  ``survivors`` is applied on every rank,
+    each re-deriving the decode matrix from the same host plan.  A launch
+    past ``timeout`` seconds is killed and raises.
+    """
+    from repro_torch.coded import CodedMatmulConfig, from_plan
+    from repro_torch.core.coded_matmul import _host_f32
+    from repro_torch.runtime.workergroup import SharedArrays, rank_device, spawn_group
+    from repro_torch.sparse.blocksparse import dense_to_block_ell
+
+    N = plan.num_workers
+    dev = rank_device(0, N, backend, device)
+    cfg = CodedMatmulConfig(backend="block_sparse", out_sharded=out_sharded)
+    op = from_plan(cfg, plan)
+    if survivors is not None:
+        op = op.with_survivors(survivors)  # an undecodable mask raises here
+    A_np, B_np = _host_f32(A), _host_f32(B)
+    ell = a_sparse if a_sparse is not None else dense_to_block_ell(
+        A_np, block_size=cfg.block_size)
+    pack = op.pack_for(ell, use_cache=False)
+    inputs = {"A": A_np, "B": B_np, **{f"pack.{f}": getattr(pack, f) for f in _PACK_ARRAYS
+                                       if getattr(pack, f) is not None}}
+    pack_meta = {"block_size": pack.block_size, "compute_dtype": pack.compute_dtype}
+    r, t = A_np.shape[1], B_np.shape[1]
+    with SharedArrays.create(inputs, {"C": ((r, t), torch.float32)}) as shared:
+        ranks = spawn_group(_group_job_rank, N, backend=backend, device=device,
+                            timeout=timeout,
+                            args=(shared, plan, cfg, survivors, repeats, pack_meta))
+        C = shared.open()["C"].clone()
+    slowest = max(rank["apply_ms"] for rank in ranks) / 1e3
+    used = (int(op.survivors.sum()) if op.survivors is not None else N)
+    return ExecutionReport(
+        scheme="group_block_sparse",
+        workers_used=used,
+        num_workers=N,
+        sim_compute_time=slowest,
+        decode_wall_time=0.0,
+        total_time=slowest,
+        decode_stats={"group": N, "backend": backend, "out_sharded": out_sharded,
+                      "repeats": repeats,
+                      "collective_path": f"{backend} on {dev.type} tensors",
+                      "ranks": ranks},
+        blocks=[C.to(dev)],
     )

@@ -9,8 +9,9 @@ mutation.  Keying on identity is safe because each entry pins strong
 references to its keyed objects, so a live key id is never recycled.
 
 The device copy of a pack (``DeviceTilePack``: vals, src, wslot, slot_of,
-tile_scale) is cached the same way, keyed on (pack, device), so a pack
-crosses to the card once and not on every apply.  Entries pin device
+tile_scale) is cached the same way, keyed on (pack, device, worker set),
+so a pack crosses to the card once and not on every apply; a rank of a
+worker group copies only its own worker's tiles.  Entries pin device
 memory until evicted or ``clear()``-ed.
 
 The consumer is ``repro_torch.coded.CodedOp`` (``op.pack_for`` and
@@ -36,7 +37,7 @@ _MAX_ENTRIES = 16
 
 class PackCache:
     """Identity-keyed LRUs of (BlockELL, plan, compute_dtype) -> pack and
-    (pack, device) -> device pack."""
+    (pack, device, workers) -> device pack."""
 
     def __init__(self, max_entries: int = _MAX_ENTRIES):
         self.max_entries = max_entries
@@ -70,12 +71,15 @@ class PackCache:
             self._packs, (id(ell), id(plan), compute_dtype), (ell, plan),
             lambda: pack_worker_tiles(ell, plan, compute_dtype=compute_dtype))
 
-    def device_pack(self, pack: WorkerTilePack,
-                    device: torch.device) -> DeviceTilePack:
-        """``pack`` on ``device``, copied at most once while pack is alive."""
+    def device_pack(self, pack: WorkerTilePack, device: torch.device,
+                    workers=None) -> DeviceTilePack:
+        """``pack`` on ``device`` (only the tiles of ``workers``, a sequence
+        of worker ids, where given), copied at most once while pack is
+        alive."""
+        workers = None if workers is None else tuple(int(k) for k in workers)
         return self._lookup(
-            self._device, (id(pack), str(device)), (pack,),
-            lambda: DeviceTilePack.from_pack(pack, device))
+            self._device, (id(pack), str(device), workers), (pack,),
+            lambda: DeviceTilePack.from_pack(pack, device, workers))
 
     def stats(self) -> dict:
         return {"entries": len(self._packs), "device_entries": len(self._device),
@@ -99,8 +103,9 @@ def get_pack(ell: BlockELL, plan: CodedMatmulPlan,
     return GLOBAL.get_pack(ell, plan, compute_dtype=compute_dtype)
 
 
-def device_pack(pack: WorkerTilePack, device: torch.device) -> DeviceTilePack:
-    return GLOBAL.device_pack(pack, device)
+def device_pack(pack: WorkerTilePack, device: torch.device,
+                workers=None) -> DeviceTilePack:
+    return GLOBAL.device_pack(pack, device, workers)
 
 
 def cache_stats() -> dict:

@@ -19,7 +19,8 @@ goes through the functions it does expose on plain data:
   the reference's, and a blinded detector fails the run;
 * the kernel scope: an entry point's call is one record on the CPU lane,
   and its result is unchanged;
-* the CLI: ``--strict --device cpu`` exits 0 with contracts at 30,
+* the CLI: ``--strict --device cpu`` exits 0 with contracts at 54 (30
+  programs in its process, 24 in the ranks of its worker group),
   ``--only schemes`` checks that layer alone, ``fused_decode`` turned off
   gives ``one-launch-epilogue`` errors and exit 1, and a layer that checks
   nothing exits 2.
@@ -327,7 +328,7 @@ def test_cli_strict_on_the_cpu_passes_with_every_program():
         env={**os.environ, "PYTHONPATH": str(ROOT / "src"), "OMP_NUM_THREADS": "1"})
     assert proc.returncode == 0, proc.stderr[-2000:]
     report = json.loads(proc.stdout)
-    assert report["checked"] == {"schemes": len(preg.scheme_names()), "contracts": 30}
+    assert report["checked"] == {"schemes": len(preg.scheme_names()), "contracts": 54}
     assert report["findings"] == [] and report["errors"] == report["warnings"] == 0
     assert report["launches"] == {"spmm_block_fused": 0, "spmm_block_fused_decode": 0,
                                   "spmm_block": 0, "coded_accum": 0}
@@ -344,7 +345,7 @@ def test_cli_without_the_fused_decode_fails_the_one_launch_contract(monkeypatch,
     monkeypatch.setattr(coded_backends.get_backend("block_sparse"), "fused_decode", False)
     assert cli.main(["--only", "contracts", "--device", "cpu", "--json", "-"]) == 1
     report = json.loads(capsys.readouterr().out)
-    assert report["checked"] == {"contracts": 30}
+    assert report["checked"] == {"contracts": 54}
     assert {(f["rule"], f["severity"], f["layer"]) for f in report["findings"]} == {
         ("one-launch-epilogue", "error", "contracts")}
     assert len(report["findings"]) == 2 * len(DEVICE_SCHEMES)
@@ -354,3 +355,156 @@ def test_cli_exits_2_when_a_layer_checks_nothing(monkeypatch, capsys):
     monkeypatch.setattr(preg, "scheme_names", lambda: ("mds",))
     assert cli.main(["--only", "contracts", "--device", "cpu"]) == 2
     assert "[contracts=0]" in capsys.readouterr().out
+
+
+# ------------------------- the worker group's programs -------------------------
+
+#: the reference's collective primitive each c10d op stands for
+_COLLECTIVE_PRIM = {"allreduce_": "psum", "reduce_scatter_": "reduce_scatter"}
+
+
+class _Params(dict):
+    """An equation's params as the reference's passes read them: its axis
+    pass ``get``s ``axes``; its walker finds no sub-jaxpr in ``values()``,
+    which would reach the import that fails on this box."""
+
+    def values(self):
+        return ()
+
+
+def as_group_jaxpr(program, group: str):
+    """A rank's program as the reference reads a shard_map body: each
+    collective a psum or reduce_scatter over the axis ``"model"`` when it
+    names the worker group, over another axis when it does not."""
+    closed = as_jaxpr(program)
+    for eqn, rec in zip(closed.jaxpr.eqns, program):
+        if rec.name.startswith("c10d."):
+            eqn.primitive.name = _COLLECTIVE_PRIM[rec.op]
+            eqn.params = _Params(axes=("model",) if rec.group == group
+                                 else (f"process group {rec.group}",))
+    return closed
+
+
+def _group_programs(device, plans):
+    """In each rank: every plan's backend x layout program over the world
+    group or its half, the two collective probes' programs, the collective
+    probe itself, and the probe and the ranks' run with the detector
+    blinded.  Rank 0 and rank 4 (one in each half) return their programs."""
+    import torch.distributed as dist
+
+    world, rank = dist.group.WORLD, dist.get_rank()
+    halves = [dist.new_group(list(range(i, i + 4))) for i in (0, 4)]
+    half = halves[rank // 4]
+    A, B = _operands()
+    ell = dense_to_block_ell(A, block_size=BS)
+    out = {"programs": {}}
+    for name, plan in plans:
+        group = world if plan.num_workers == 8 else half
+        for backend in ("dense_scan", "block_sparse"):
+            for sharded in (False, True):
+                cfg = CodedMatmulConfig(backend=backend, out_sharded=sharded)
+                op = from_plan(cfg, plan).bind(device, group=group)
+                kw = {"a_sparse": ell} if backend == "block_sparse" else {}
+                program, _ = pc.capture_apply(op, torch.from_numpy(A), torch.from_numpy(B), **kw)
+                out["programs"][(name, backend, sharded)] = (program, group.group_name)
+    contrib = torch.zeros((4, BR, BT))
+    out["wrong-group"] = (pc.capture(pc.wrong_group_combine, contrib, world)[0], half.group_name)
+    out["no-collective"] = (pc.capture(pc.uncombined, contrib)[0], half.group_name)
+    pc.assert_collective_detector_sensitivity(half, world, 4, BR, BT)  # must not raise
+    seeing = pc.collective_axis_problems
+    pc.collective_axis_problems = lambda *a, **kw: []
+    try:
+        with pytest.raises(AssertionError, match="lost sensitivity") as blind:
+            pc.assert_collective_detector_sensitivity(half, world, 4, BR, BT)
+        out["blind"] = str(blind.value)
+        out["blind_run"] = pc._group_programs_rank(device, *_operands(), ell, plans)
+    finally:
+        pc.collective_axis_problems = seeing
+    return out if rank in (0, 4) else None
+
+
+@pytest.fixture(scope="module")
+def group_programs():
+    from repro_torch.runtime.workergroup import spawn_group
+
+    plans = [(name, preg.get_scheme(name).plan(M, N_BLK, _workers(preg, name), seed=5))
+             for name in DEVICE_SCHEMES]
+    ranks = spawn_group(_group_programs, 8, backend="gloo", device="cpu", timeout=120.0,
+                        args=(plans,))
+    return ranks[0], ranks[4], dict(plans)
+
+
+GROUP_CASES = [(name, backend, sharded) for name in DEVICE_SCHEMES
+               for backend in ("dense_scan", "block_sparse") for sharded in (False, True)]
+
+
+def _all_key(findings, anchor_line):
+    assert all(f.path == "core/coded_matmul.py" and f.line == anchor_line for f in findings)
+    return sorted((f.rule, f.severity) for f in findings)
+
+
+@pytest.mark.parametrize("case", GROUP_CASES,
+                         ids=[f"{n}-{b}-{'sharded' if s else 'replicated'}"
+                              for n, b, s in GROUP_CASES])
+def test_group_program_findings_match_the_reference(group_programs, case):
+    first, other, plans = group_programs
+    name, backend, sharded = case
+    plan = plans[name]
+    port_line, ref_line = _anchors()
+    sparse = backend == "block_sparse"
+    A, _ = _operands()
+    budget = pc.nnz_proportional_budget(
+        plan, pcm.pack_worker_tiles(dense_to_block_ell(A, block_size=BS), plan), S, R, T)
+    rows = plan.max_degree * S if sparse and plan.max_degree > 1 else None
+    for rank in (first, other):
+        program, group = rank["programs"][case]
+        # the rank's one collective, of its layout's kind, over its own group
+        assert pc.collectives(program) == [
+            ("reduce_scatter_" if sharded else "allreduce_", group)]
+        got = pc.verify_staged_program(
+            program, num_workers=plan.num_workers, stacked_rows=rows,
+            byte_budget=budget if sparse else None, context=name, group=group,
+            layout=pc.layout_of(sharded))
+        ref = jc.verify_staged_program(
+            as_group_jaxpr(program, group), axis_name="model", stacked_rows=rows,
+            byte_budget=budget if sparse else None, context=name)
+        assert _all_key(got, port_line) == _all_key(ref, ref_line) == []
+    # the free-worker schemes run on the world group, the fixed ones on a half
+    assert (first["programs"][case][1] == other["programs"][case][1]) == (
+        plan.num_workers == 8)
+
+
+@pytest.mark.parametrize("probe", ["wrong-group", "no-collective"])
+def test_collective_probes_are_flagged_like_the_reference(group_programs, probe):
+    first, _, _ = group_programs
+    program, group = first[probe]
+    port_line, ref_line = _anchors()
+    got = pc.verify_staged_program(program, num_workers=4, stacked_rows=None,
+                                   byte_budget=None, context=probe, group=group)
+    ref = jc.verify_staged_program(as_group_jaxpr(program, group), axis_name="model",
+                                   stacked_rows=None, byte_budget=None, context=probe)
+    assert _all_key(got, port_line) == _all_key(ref, ref_line) == [("collective-axis", "error")]
+    # and the one-process rule has nothing to say about a rank's program
+    assert "worker-combine" not in {f.rule for f in got}
+
+
+def test_a_blind_collective_detector_fails_the_ranks(group_programs):
+    for rank in group_programs[:2]:
+        assert "collective-axis detector has lost sensitivity" in rank["blind"]
+        run = rank["blind_run"]
+        assert run["programs"] == 0 and run["launches"] == {}
+        assert [(f.rule, f.severity) for f in run["findings"]] == [("collective-axis", "error")]
+        assert "lost sensitivity" in run["findings"][0].message
+
+
+def test_collective_axis_rule_counts_and_names():
+    rec = lambda op, group: pc.OpRecord(f"c10d.{op}.default", op, (), (), group=group)  # noqa: E731
+    one = [rec("allreduce_", "3")]
+    assert pc.collective_axis_problems(one, group="3", layout="all_reduce") == []
+    assert len(pc.collective_axis_problems(one, group="3", layout="reduce_scatter")) == 1
+    assert len(pc.collective_axis_problems(one, group="0", layout="all_reduce")) == 1
+    assert len(pc.collective_axis_problems(one * 2, group="3", layout="all_reduce")) == 1
+    assert pc.collective_axis_problems([], group="3", layout="all_reduce") == [
+        "no collective in the staged program: worker contributions are never combined"]
+    assert pc.collective_axis_offenders(one + [rec("allreduce_", "0")], "3") == [
+        ("allreduce_", "0")]

@@ -7,7 +7,8 @@
 * ``bind()`` with no CUDA device raises instead of running on the CPU, and
   so do the runtime's entry points (``run_coded_job``, ``run_live_job``,
   ``JobMux``, ``run_device_job``, the process runtime's ``run_proc_job``,
-  ``ProcPool`` and ``MuxProcPool``), ``coded_matmul`` and the serving
+  ``ProcPool`` and ``MuxProcPool``, the worker group's ``run_group_job``
+  and ``spawn_group``), ``coded_matmul`` and the serving
   path's (``build``, ``generate``, ``ServingEngine``) unless given
   ``device="cpu"``;
   and the training path's (``launch.train.main``, ``make_train_step``
@@ -104,8 +105,8 @@ def _entry_point_calls():
 
     from repro_torch.core import coded_matmul, schemes
     from repro_torch.runtime import (JobMux, MuxJob, MuxProcPool, ProcPool, SlowWorkers,
-                                     run_coded_job, run_device_job, run_live_job,
-                                     run_proc_job)
+                                     run_coded_job, run_device_job, run_group_job,
+                                     run_live_job, run_proc_job, spawn_group)
 
     rng = np.random.default_rng(0)
     blocks = [rng.standard_normal((3, 4)) for _ in range(4)]
@@ -141,13 +142,17 @@ def _entry_point_calls():
         "JobMux live": lambda d: mux("live", d),
         "run_device_job": lambda d: run_device_job(A, B, p, device=d, repeats=1),
         "coded_matmul": legacy,
+        "run_group_job": lambda d: run_group_job(A, B, p, backend="gloo", device=d,
+                                                 repeats=1, timeout=120.0),
+        # str(device) is the cheapest function a rank can run
+        "spawn_group": lambda d: spawn_group(str, 1, backend="gloo", device=d, timeout=60.0),
     }
 
 
 @pytest.mark.parametrize("name", ["run_coded_job", "run_live_job", "JobMux sim",
                                   "JobMux live", "run_device_job", "coded_matmul",
                                   "run_proc_job", "ProcPool", "MuxProcPool",
-                                  "JobMux proc"])
+                                  "JobMux proc", "run_group_job", "spawn_group"])
 def test_entry_points_without_cuda_raise_unless_asked_for_the_cpu(name):
     if torch.cuda.is_available():
         pytest.skip("a CUDA device is present: the card is meant to be used")
