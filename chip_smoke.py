@@ -37,7 +37,8 @@ on the same collected results, plus one dense run on the main path's
 operands.  ``live_job`` runs ``run_live_job`` there with two workers
 sleeping 2 s, and one ``JobMux(source="live")`` batch of three jobs.
 ``proc_job`` runs ``run_proc_job`` there: 28 worker processes, each with
-a CUDA context of its own, in the live job's case, without a fault, and
+a CUDA context of its own, kept from case to case (``WorkerProcesses``),
+in the live job's case, without a fault, and
 with each fault class (kill, pause, slow, drop_result: each checked to
 have fired and the job to decode, beside ``FaultRealization``'s
 prediction), a respawn and an unrecoverable kill; ``proc_mux`` one
@@ -1669,18 +1670,19 @@ def _tree_errs(got: dict, want: dict) -> tuple[float, float]:
     return worst_abs, worst_rel
 
 
-def _train_cli(dev: torch.device, ckpt: str, *extra: str) -> tuple[int, str, float]:
+def _train_cli(dev: torch.device, ckpt: str, *extra: str, base: list | None = None,
+               timeout: float = TRAIN_CLI_TIMEOUT_S) -> tuple[int, str, float]:
     """``python -m repro_torch.launch.train`` on the card (the CPU when
-    rehearsed there): exit code, output, seconds."""
+    rehearsed there) with ``base`` (None: the train phase's arguments):
+    exit code, output, seconds."""
     import os
 
-    cmd = [sys.executable, "-m", "repro_torch.launch.train", "--arch", TRAIN_ARCH,
-           *TRAIN_CLI, "--ckpt-dir", ckpt, *extra,
-           *([] if dev.type == "cuda" else ["--device", "cpu"])]
+    base = ["--arch", TRAIN_ARCH, *TRAIN_CLI] if base is None else base
+    cmd = [sys.executable, "-m", "repro_torch.launch.train", *base, "--ckpt-dir", ckpt,
+           *extra, *([] if dev.type == "cuda" else ["--device", "cpu"])]
     env = dict(os.environ, PYTHONPATH=str(ROOT / "src"))
     t0 = time.perf_counter()
-    proc = subprocess.run(cmd, capture_output=True, text=True, env=env,
-                          timeout=TRAIN_CLI_TIMEOUT_S)
+    proc = subprocess.run(cmd, capture_output=True, text=True, env=env, timeout=timeout)
     return proc.returncode, proc.stdout + proc.stderr, time.perf_counter() - t0
 
 
@@ -2421,10 +2423,13 @@ def phase_proc_job(paper: dict) -> None:
     -- kill, pause, slow, drop_result -- checked to have fired, decoded
     within DECODE_RTOL, beside ``FaultRealization``'s predicted recovery;
     a respawn after a kill at spawn on an ``uncoded`` job, which needs the
-    fresh process; and an unrecoverable kill, which must raise naming worker 1."""
+    fresh process; and an unrecoverable kill, which must raise naming worker 1.
+    Every case runs on one ``WorkerProcesses``: the first pays the 28
+    processes' start-up, a later one only for a process the case before it
+    ended."""
     from repro_torch.core import schemes
     from repro_torch.core.decoder import DecodingError
-    from repro_torch.runtime import NoStragglers, run_coded_job, run_proc_job
+    from repro_torch.runtime import NoStragglers, WorkerProcesses, run_coded_job, run_proc_job
     from repro_torch.runtime.chaos import (FaultPlan, FaultRealization, drop_result,
                                            kill, pause, slow)
 
@@ -2439,7 +2444,7 @@ def phase_proc_job(paper: dict) -> None:
         t0 = time.perf_counter()
         rep = run_proc_job(c, A_blocks, B_blocks, PAPER_MN, straggler_sleep=sleep,
                            num_chunks=PROC_Q, plan=plan, timeout=PROC_TIMEOUT_S,
-                           heartbeat_deadline=PROC_DEADLINE_S, **kw)
+                           heartbeat_deadline=PROC_DEADLINE_S, processes=procs, **kw)
         return rep, time.perf_counter() - t0
 
     def predicted(plan, unit):
@@ -2483,65 +2488,66 @@ def phase_proc_job(paper: dict) -> None:
     chunk_ms_alone = statistics.median(alone) * 1e3
 
     rows = []
-    # the live job's case: the same sleepers, beside the threads' compute
-    memory = {}
-    with _card_memory_watch(memory):
-        rep, wall = run(code, sleep={0: LIVE_SLEEP_S, 1: LIVE_SLEEP_S})
-    rows.append(row("as live_job (workers 0, 1 sleep 2 s)", rep, wall))
-    rows[-1].update(card_bytes_taken=memory["peak_bytes"],
-                    card_bytes_per_process=memory["peak_bytes"] / PAPER_WORKERS,
-                    progress_of_sleepers=rep.worker_progress[:2],
-                    chunk_ms_alone=chunk_ms_alone,
-                    chunks_used_times_chunk_alone_s=rep.chunks_used * chunk_ms_alone / 1e3)
-    emit(phase="proc_job", **rows[-1])
-
-    # no fault: calibrates the simulator's clock (as the JAX package's chaos
-    # benchmark does)
-    rep, wall = run(code)
-    rows.append(row("no fault", rep, wall))
-    sim_base = run_coded_job(code, truth, NoStragglers(), rng=np.random.default_rng(SEED),
-                             unit_block_time=1.0, num_chunks=PROC_Q).sim_compute_time
-    unit = rep.sim_compute_time / sim_base
-    rows[-1].update(predicted_s=predicted([], unit), unit_block_time=unit)
-    emit(phase="proc_job", **rows[-1])
-    check(rep.fault_ledger == [], f"proc_job no fault: ledger {rep.fault_ledger}")
-
-    for name, fault in (("kill", kill(1, after_chunk=0)), ("pause", pause(2, after_chunk=0)),
-                        ("slow10x", slow(3, factor=10.0)),
-                        ("drop_result", drop_result(1, chunk=1))):
-        rep, wall = run(code, [fault], faulted=fault.worker)
-        rows.append(row(name, rep, wall, [fault]))
-        pred = predicted([fault], unit)
-        rows[-1].update(predicted_s=pred, measured_over_predicted=rep.sim_compute_time / pred)
+    with WorkerProcesses() as procs:
+        # the live job's case: the same sleepers, beside the threads' compute
+        memory = {}
+        with _card_memory_watch(memory):
+            rep, wall = run(code, sleep={0: LIVE_SLEEP_S, 1: LIVE_SLEEP_S})
+        rows.append(row("as live_job (workers 0, 1 sleep 2 s)", rep, wall))
+        rows[-1].update(card_bytes_taken=memory["peak_bytes"],
+                        card_bytes_per_process=memory["peak_bytes"] / PAPER_WORKERS,
+                        progress_of_sleepers=rep.worker_progress[:2],
+                        chunk_ms_alone=chunk_ms_alone,
+                        chunks_used_times_chunk_alone_s=rep.chunks_used * chunk_ms_alone / 1e3)
         emit(phase="proc_job", **rows[-1])
-        check(any(e["kind"] == fault.kind and e["worker"] == fault.worker
-                  for e in rep.fault_ledger),
-              f"proc_job {name}: the fault did not fire: {rep.fault_ledger}")
 
-    # respawn after a kill: uncoded needs the fresh process (its one
-    # equation a worker, at q = 4, lies in a single chunk)
-    fault = kill(1)
-    rep, wall = run(uncoded, [fault], respawn=True)
-    rows.append(row("uncoded, kill + respawn", rep, wall, [fault]))
-    again = [h for h in rep.decode_stats["startup"]["hello"] if h["worker"] == 1]
-    rows[-1]["respawn_startup"] = again[1:]
-    emit(phase="proc_job", **rows[-1])
-    kinds = [e["kind"] for e in rep.fault_ledger]
-    check(kinds == ["kill", "crash_detected", "respawn"], f"proc_job respawn: ledger {kinds}")
-    check(rep.fault_ledger[1]["exitcode"] == -9, f"proc_job respawn: {rep.fault_ledger[1]}")
-    check(len(again) == 2, f"proc_job respawn: worker 1 said hello {len(again)} times")
+        # no fault: calibrates the simulator's clock (as the JAX package's chaos
+        # benchmark does)
+        rep, wall = run(code)
+        rows.append(row("no fault", rep, wall))
+        sim_base = run_coded_job(code, truth, NoStragglers(), rng=np.random.default_rng(SEED),
+                                 unit_block_time=1.0, num_chunks=PROC_Q).sim_compute_time
+        unit = rep.sim_compute_time / sim_base
+        rows[-1].update(predicted_s=predicted([], unit), unit_block_time=unit)
+        emit(phase="proc_job", **rows[-1])
+        check(rep.fault_ledger == [], f"proc_job no fault: ledger {rep.fault_ledger}")
 
-    # unrecoverable: uncoded without worker 1
-    t0 = time.perf_counter()
-    err = None
-    try:
-        run(uncoded, [kill(1)])
-    except DecodingError as exc:
-        err = str(exc)
-    rows.append({"case": "uncoded, kill(1) at spawn", "plan": [repr(kill(1))],
-                 "error": err, "wall_s": time.perf_counter() - t0})
-    emit(phase="proc_job", **rows[-1])
-    check(err is not None and "[1]" in err, f"proc_job unrecoverable: raised {err!r}")
+        for name, fault in (("kill", kill(1, after_chunk=0)), ("pause", pause(2, after_chunk=0)),
+                            ("slow10x", slow(3, factor=10.0)),
+                            ("drop_result", drop_result(1, chunk=1))):
+            rep, wall = run(code, [fault], faulted=fault.worker)
+            rows.append(row(name, rep, wall, [fault]))
+            pred = predicted([fault], unit)
+            rows[-1].update(predicted_s=pred, measured_over_predicted=rep.sim_compute_time / pred)
+            emit(phase="proc_job", **rows[-1])
+            check(any(e["kind"] == fault.kind and e["worker"] == fault.worker
+                      for e in rep.fault_ledger),
+                  f"proc_job {name}: the fault did not fire: {rep.fault_ledger}")
+
+        # respawn after a kill: uncoded needs the fresh process (its one
+        # equation a worker, at q = 4, lies in a single chunk)
+        fault = kill(1)
+        rep, wall = run(uncoded, [fault], respawn=True)
+        rows.append(row("uncoded, kill + respawn", rep, wall, [fault]))
+        again = [h for h in rep.decode_stats["startup"]["hello"] if h["worker"] == 1]
+        rows[-1]["respawn_startup"] = again[1:]
+        emit(phase="proc_job", **rows[-1])
+        kinds = [e["kind"] for e in rep.fault_ledger]
+        check(kinds == ["kill", "crash_detected", "respawn"], f"proc_job respawn: ledger {kinds}")
+        check(rep.fault_ledger[1]["exitcode"] == -9, f"proc_job respawn: {rep.fault_ledger[1]}")
+        check(len(again) == 2, f"proc_job respawn: worker 1 said hello {len(again)} times")
+
+        # unrecoverable: uncoded without worker 1
+        t0 = time.perf_counter()
+        err = None
+        try:
+            run(uncoded, [kill(1)])
+        except DecodingError as exc:
+            err = str(exc)
+        rows.append({"case": "uncoded, kill(1) at spawn", "plan": [repr(kill(1))],
+                     "error": err, "wall_s": time.perf_counter() - t0})
+        emit(phase="proc_job", **rows[-1])
+        check(err is not None and "[1]" in err, f"proc_job unrecoverable: raised {err!r}")
     emit(phase="proc_job", workers=PAPER_WORKERS, q=PROC_Q, nnz_C=paper["nnz_C"],
          sleep_s=PROC_SLEEP_S, faulted_sleep_s=PROC_FAULTED_SLEEP_S,
          heartbeat_deadline_s=PROC_DEADLINE_S,
@@ -2675,6 +2681,296 @@ def phase_group_job(inputs: dict, smi: str) -> dict:
                                             "samples", "max_memory_allocated", "shard_shape")}
                       for rank in stats["ranks"]])
     return total
+
+
+# ------------------------------- phase 10c ----------------------------------
+# the device mesh (DTensor; ``launch.meshctx``) on one card.  A rank drives
+# one card, so the mesh here is {data 1, model 1} over nccl in one rank: the
+# sharded path's code (placements, redistributions, local_map, the combine's
+# bf16 all-reduce, the gathers) runs on the card, but nothing is split.
+# Several ranks sharing one card would need gloo, and torch 2.11's gloo
+# crashes (the rank process dies with SIGSEGV) in the tensor-form
+# all-gather that DTensor redistributes with (PERF.md, open questions).
+# chip_mesh.py runs the mesh as it is meant to run: nccl, a card a rank.
+# (a) internlm2-1.8b at full width, depth cut to 1 layer, batch 2 x 256:
+# the sharded step-0 loss and every gathered gradient against the
+# one-process port on the same card, then 2 sharded train steps;
+# (b) qwen3-moe-30b-a3b's MoE block alone at full width (128 experts x 768,
+# top 8; one layer's parameters, no embedding) on 2 x 256 tokens, forward
+# and backward: the dp-local dispatch against the one-process port, with
+# the shard_map combine against it, and the coded expert FFN (global
+# dispatch) against the one-process port; (c) ``mesh_cli``: the CLI at
+# --reduced through a simulated failure and its resume on the mesh, against
+# a one-process run of the same steps made in this process.
+MESH_SHAPE, MESH_BACKEND, MESH_TIMEOUT_S = {"data": 1, "model": 1}, "nccl", 300.0
+MESH_ARCH, MESH_LAYERS, MESH_BATCH, MESH_SEQ, MESH_STEPS = "internlm2-1.8b", 1, 2, 256, 2
+MESH_MOE_ARCH, MESH_MOE_BATCH, MESH_MOE_SEQ = "qwen3-moe-30b-a3b", 2, 256
+# sharded against one process: f32 sums in other orders (the loss relative
+# to itself, a gradient leaf relative to its largest magnitude); the
+# shard_map combine sums bf16 partials, held to the reference's own limits
+# for it (tests/spmd_moe_combine_check.py)
+MESH_LOSS_RTOL, MESH_GRAD_RTOL = 1e-5, 1e-4
+MESH_COMBINE_RTOL, MESH_COMBINE_GRAD_RTOL = 2e-3, 5e-2
+MESH_MOE_FORMS = {"local": ("moe_local_dispatch",),
+                  "shardmap": ("moe_local_dispatch", "moe_shardmap_combine"),
+                  "coded": ("coded_moe",)}
+MESH_CLI = ["--arch", "internlm2-1.8b", "--reduced", "--steps", "12", "--batch", "2",
+            "--seq", "32", "--ckpt-every", "5"]
+MESH_CLI_FAIL, MESH_CLI_ATOL = 8, 2e-4  # the printed losses carry 4 decimals
+_MESH_LOSS_LINE = re.compile(r"\[train\] step +(\d+) loss +([0-9.]+)")
+
+
+def _synced_s(fn, dev: torch.device):
+    """``fn()`` and its seconds, the card synchronised before and after."""
+    if dev.type == "cuda":
+        torch.cuda.synchronize(dev)
+    t0 = time.perf_counter()
+    out = fn()
+    if dev.type == "cuda":
+        torch.cuda.synchronize(dev)
+    return out, time.perf_counter() - t0
+
+
+def _leaf_errs(got: list, want: list) -> list[float]:
+    """Each leaf's max|got - want| over its max|want|; ``got`` may hold
+    DTensors, gathered one at a time (every rank calls this)."""
+    from torch.distributed.tensor import DTensor
+
+    out = []
+    for g, w in zip(got, want, strict=True):
+        g = g.full_tensor() if isinstance(g, DTensor) else g
+        out.append(float((g.float() - w.float()).abs().max())
+                   / max(float(w.float().abs().max()), 1e-30))
+    return out
+
+
+def mesh_lm(dev: torch.device, dmesh, cfg, batch: int, seq: int, steps: int,
+            grads: bool) -> dict:
+    """A language model's step on the mesh against one process on this
+    rank's card (rank 0 makes the one-process step; with ``grads`` every
+    gathered gradient is held too), then ``steps`` sharded train steps:
+    their losses, times and this card's peak memory."""
+    from repro_torch.launch import meshctx
+    from repro_torch.models import build
+    from repro_torch.training.data import SyntheticCorpus, distribute_batch
+    from repro_torch.training.optimizer import AdamW, cosine_warmup_schedule
+    from repro_torch.training.train_step import make_train_step, value_and_grad
+    from repro_torch.training.tree import tree_leaves
+
+    model = build(cfg, dev)
+    corpus = SyntheticCorpus(cfg, batch, seq, seed=SEED)
+    rank0 = dmesh.get_rank() == 0
+    params = model.init(SEED)
+    one = None
+    if rank0:
+        loss1, g1 = value_and_grad(model, params, distribute_batch(corpus.make_batch(0), None, dev))
+        one = (float(loss1), tree_leaves(g1) if grads else None)
+        del g1
+    if dev.type == "cuda":
+        torch.cuda.empty_cache()
+        torch.cuda.reset_peak_memory_stats(dev)
+    with meshctx.use_mesh(dmesh):
+        sharded = meshctx.distribute(params, model.specs(), dmesh)
+        del params
+        (loss, g), first_s = _synced_s(lambda: value_and_grad(
+            model, sharded, distribute_batch(corpus.make_batch(0), dmesh, dev)), dev)
+        errs = _leaf_errs(tree_leaves(g), one[1]) if grads and rank0 else None
+        if grads and not rank0:
+            for leaf in tree_leaves(g):
+                leaf.full_tensor()  # the gathers are collective
+        del g
+        opt = AdamW(lr=cosine_warmup_schedule(3e-4, 20, 100))
+        step_fn = make_train_step(model, opt)
+        state = opt.init(sharded)
+        losses, times = [], []
+        for step in range(steps):
+            (_, _, m), s = _synced_s(lambda: step_fn(
+                sharded, state, distribute_batch(corpus.make_batch(step), dmesh, dev)), dev)
+            losses.append(float(m["loss"]))
+            times.append(s)
+    out = {"loss": float(loss), "first_value_and_grad_s": first_s, "losses": losses,
+           "step_s": times, "tokens_per_s": [batch * seq / s for s in times],
+           "max_memory_allocated": (torch.cuda.max_memory_allocated(dev)
+                                    if dev.type == "cuda" else None)}
+    if rank0:
+        out.update(one_process_loss=one[0],
+                   loss_rel_err=abs(out["loss"] - one[0]) / abs(one[0]))
+        if grads:
+            out.update(grad_rel_errs=errs, grad_rel_err=max(errs))
+    return out
+
+
+class _MoEBlock:
+    """One MoE layer as a model for ``value_and_grad``: loss = <out, cot> / N
+    plus the aux loss's coefficient times it, over the parameters
+    ``{"p": the layer's, "x": its input}``."""
+
+    def __init__(self, cfg):
+        self.cfg = cfg
+
+    def loss(self, params, batch):
+        from repro_torch.models.moe import moe_apply
+        from repro_torch.models.registry import AUX_LOSS_COEF
+
+        out, aux = moe_apply(params["x"], params["p"], self.cfg)
+        return (out * batch["cot"]).sum() / batch["cot"].numel() + AUX_LOSS_COEF * aux
+
+
+def mesh_forms(dev: torch.device, dmesh, block_of, params: dict, specs: dict,
+               batch: dict) -> dict:
+    """The MoE forms (``MESH_MOE_FORMS``, in order) of a model forward and
+    backward on the mesh: local dispatch and the coded FFN against one
+    process on rank 0's card (under the mesh's shape as a dict, which sets
+    the dp-local dispatch's chunks), the shard_map combine against local
+    dispatch on the mesh.  ``block_of(opts)``: the model (anything with
+    ``loss(params, batch)``) with those options; ``params`` the full values
+    on every rank, placed by ``specs``.  Each form's loss, worst gradient
+    leaf (gathered one leaf at a time; rank 0 keeps local dispatch's for
+    the combine) and time (a second, timed call)."""
+    from repro_torch.launch import meshctx
+    from repro_torch.training.data import distribute_batch
+    from repro_torch.training.train_step import value_and_grad
+    from repro_torch.training.tree import tree_leaves
+
+    rank0 = dmesh.get_rank() == 0
+    out, local = {}, None
+    for form, opts in MESH_MOE_FORMS.items():
+        block = block_of(opts)
+        want = None
+        if form == "shardmap":
+            want = local
+        elif rank0:  # the mesh's shape as a dict: the same dp chunks, nothing placed
+            with meshctx.use_mesh(meshctx.mesh_shape(dmesh)):
+                loss1, g1 = value_and_grad(block, params, distribute_batch(batch, None, dev))
+            want = (float(loss1), tree_leaves(g1))
+            del g1
+        with meshctx.use_mesh(dmesh):
+            sharded = meshctx.distribute(params, specs, dmesh)
+            placed = distribute_batch(batch, dmesh, dev)
+            loss, g = value_and_grad(block, sharded, placed)
+            _, seconds = _synced_s(lambda: value_and_grad(block, sharded, placed), dev)
+            errs, kept = [], []
+            for i, leaf in enumerate(tree_leaves(g)):
+                full = leaf.full_tensor()
+                if rank0:
+                    errs.extend(_leaf_errs([full], [want[1][i]]))
+                    if form == "local":
+                        kept.append(full)
+            del g, sharded, full
+        if form == "local" and rank0:
+            local = (float(loss), kept)
+        del want
+        row = {"loss": float(loss), "fwd_bwd_ms": seconds * 1e3}
+        if rank0:
+            combine = form == "shardmap"
+            lt = local[0] if combine else loss1
+            row.update(against="local dispatch on the mesh" if combine else "one process",
+                       loss_rel_err=abs(float(loss) - float(lt)) / abs(float(lt)),
+                       grad_rel_err=max(errs),
+                       rtol=MESH_COMBINE_RTOL if combine else MESH_LOSS_RTOL,
+                       grad_rtol=MESH_COMBINE_GRAD_RTOL if combine else MESH_GRAD_RTOL)
+        out[form] = row
+        if dev.type == "cuda":
+            torch.cuda.empty_cache()
+    return out
+
+
+def mesh_moe_block(dev: torch.device, dmesh, cfg, batch: int, seq: int) -> dict:
+    """``mesh_forms`` on one MoE layer alone (``_MoEBlock``): its parameters
+    and input drawn from SEED on the card, a fixed cotangent."""
+    from repro_torch.models.layers import tree_init, tree_specs
+    from repro_torch.models.moe import moe_defs
+
+    gen = torch.Generator(device=dev).manual_seed(SEED)
+    params = {"p": tree_init(moe_defs(cfg), gen, torch.float32, dev),
+              "x": torch.randn(batch, seq, cfg.d_model, generator=gen, device=dev)}
+    cot = {"cot": torch.randn(batch, seq, cfg.d_model, generator=gen, device=dev)}
+    specs = {"p": tree_specs(moe_defs(cfg)), "x": ("dp", None, None)}
+    return mesh_forms(dev, dmesh, lambda opts: _MoEBlock(cfg.with_opts(opts)),
+                      params, specs, cot)
+
+
+def _mesh_rank(dev: torch.device, dmesh) -> dict:
+    """The mesh phase's rank: (a) and (b), and this process's kernel
+    launches."""
+    import repro_torch.configs as configs
+    from repro_torch.kernels import coded_accum, spmm_block
+
+    lm = dataclasses.replace(configs.get(MESH_ARCH), num_layers=MESH_LAYERS)
+    out = {"lm": mesh_lm(dev, dmesh, lm, MESH_BATCH, MESH_SEQ, MESH_STEPS, grads=True)}
+    if dev.type == "cuda":
+        torch.cuda.empty_cache()
+    out["moe"] = mesh_moe_block(dev, dmesh, configs.get(MESH_MOE_ARCH),
+                                MESH_MOE_BATCH, MESH_MOE_SEQ)
+    out["launches"] = {**spmm_block.LAUNCHES, **coded_accum.LAUNCHES}
+    return out
+
+
+def _cli_losses(text: str) -> dict:
+    return {int(s): float(v) for s, v in _MESH_LOSS_LINE.findall(text)}
+
+
+def phase_mesh(smi: str, dev: torch.device) -> dict:
+    """The device mesh on the card (see the note above ``MESH_SHAPE``): (a)
+    and (b) in one rank, each checked.  Returns the rank's kernel
+    launches (the mesh's path launches none)."""
+    from repro_torch.runtime.workergroup import spawn_group
+
+    mem = {}
+    with _card_memory_watch(mem):
+        (rank,) = spawn_group(_mesh_rank, 1, backend=MESH_BACKEND, timeout=MESH_TIMEOUT_S,
+                              device=None if MESH_BACKEND == "nccl" else dev,
+                              mesh=MESH_SHAPE)
+    lm, moe = rank["lm"], rank["moe"]
+    check(lm["loss_rel_err"] <= MESH_LOSS_RTOL,
+          f"mesh lm: loss {lm['loss']} vs one process {lm['one_process_loss']}")
+    check(lm["grad_rel_err"] <= MESH_GRAD_RTOL,
+          f"mesh lm: a gradient leaf {lm['grad_rel_err']} of its largest from one process")
+    check(all(math.isfinite(x) for x in lm["losses"]), f"mesh lm: losses {lm['losses']}")
+    for form, row in moe.items():
+        check(row["loss_rel_err"] <= row["rtol"] and row["grad_rel_err"] <= row["grad_rtol"],
+              f"mesh moe {form}: {row}")
+    emit(phase="mesh", part="lm", arch=MESH_ARCH, layers=MESH_LAYERS, batch=MESH_BATCH,
+         seq=MESH_SEQ, mesh=MESH_SHAPE, backend=MESH_BACKEND, loss_rtol=MESH_LOSS_RTOL,
+         grad_rtol=MESH_GRAD_RTOL, card_peak_bytes=mem["peak_bytes"], nvidia_smi=smi,
+         **{k: v for k, v in lm.items() if k != "grad_rel_errs"})
+    emit(phase="mesh", part="moe_block", arch=MESH_MOE_ARCH, batch=MESH_MOE_BATCH,
+         seq=MESH_MOE_SEQ, forms=moe)
+
+    return rank["launches"]
+
+
+def phase_mesh_cli(dev: torch.device) -> None:
+    """(c): the CLI's failure and resume on the mesh, each a process,
+    against a one-process run of the same steps made in this process."""
+    import contextlib
+    import io
+    import tempfile
+
+    from repro_torch.launch import train as train_cli
+
+    mesh_args = ["--nproc", "1", "--elastic"]
+    with tempfile.TemporaryDirectory(prefix="mesh_cli_") as tmp:
+        rc1, out1, s1 = _train_cli(dev, tmp, *mesh_args, "--simulate-failure",
+                                   str(MESH_CLI_FAIL), base=MESH_CLI, timeout=MESH_TIMEOUT_S)
+        rc2, out2, s2 = _train_cli(dev, tmp, *mesh_args, base=MESH_CLI, timeout=MESH_TIMEOUT_S)
+    with tempfile.TemporaryDirectory(prefix="mesh_one_") as tmp, \
+            contextlib.redirect_stdout(io.StringIO()) as buf:
+        t0 = time.perf_counter()
+        rc3 = train_cli.main([*MESH_CLI, "--ckpt-dir", tmp,
+                              *([] if dev.type == "cuda" else ["--device", "cpu"])])
+        out3, s3 = buf.getvalue(), time.perf_counter() - t0
+    check(rc1 == 17 and "[train] mesh {'data': 1, 'model': 1}" in out1
+          and f"SIMULATED FAILURE at step {MESH_CLI_FAIL}" in out1,
+          f"mesh cli failure run: exit {rc1}: {out1[-3000:]}")
+    check(rc2 == 0 and "resumed from step 5" in out2, f"mesh cli resume: exit {rc2}: "
+                                                        f"{out2[-3000:]}")
+    got, want = {**_cli_losses(out1), **_cli_losses(out2)}, _cli_losses(out3)
+    check(rc3 == 0 and sorted(got) == sorted(want) == [0, 10, 11]
+          and all(abs(got[s] - want[s]) <= MESH_CLI_ATOL for s in got),
+          f"mesh cli losses {got} vs one process {want}: {out3[-2000:]}")
+    emit(phase="mesh", part="cli", args=MESH_CLI, fail_at=MESH_CLI_FAIL, losses=got,
+         one_process_losses=want, atol=MESH_CLI_ATOL, seconds=[s1, s2, s3])
 
 
 # ------------------------------- phase 11 -----------------------------------
@@ -2862,42 +3158,66 @@ def _pool_helpers() -> dict[int, str]:
     return out
 
 
-def phase_examples(dev: torch.device) -> dict:
-    """Each ``examples/*_torch.py`` as a process of its own on the card: exit
-    0 and its OK line, its seconds, the kernel launches of its process, and
-    no pool helper of its left behind (an example's fork server is not this
-    script's descendant once the example has exited).  Returns the
-    launches summed over the examples."""
+# the examples run in two stages, each of streams at once, balanced by
+# their seconds alone (measured on one H100: train_lm 57 s; serve_demo 30,
+# quickstart 10; straggler_sim 14, coded_checkpoint_demo 18); chaos_demo
+# (26 s), whose kill must fire before its job can decode, runs alone; each
+# example is its own process and counts its own launches
+EXAMPLE_STAGES = ((("train_lm",), ("serve_demo", "quickstart"),
+                   ("straggler_sim", "coded_checkpoint_demo")),
+                  (("chaos_demo",),))
+
+
+def _run_example(stem: str, dev: torch.device) -> dict:
+    """One example as a process of its own: exit 0 and its OK line, its
+    seconds and the kernel launches of its process."""
     import tempfile
 
-    before = _pool_helpers()
+    args, timeout, ok = EXAMPLE_RUNS[stem]
     env = dict(os.environ, PYTHONPATH=str(ROOT / "src"))
-    out, total = {}, {}
-    for stem, (args, timeout, ok) in EXAMPLE_RUNS.items():
-        with tempfile.TemporaryDirectory(prefix=f"{stem}_") as tmp:
-            extra = ["--ckpt-dir", tmp] if stem == "train_lm" else []
-            cmd = [sys.executable, "-c", _EXAMPLE_RUNNER,
-                   str(ROOT / "examples" / f"{stem}_torch.py"), *args, *extra,
-                   *([] if dev.type == "cuda" else ["--device", "cpu"])]
-            t0 = time.perf_counter()
-            proc = subprocess.run(cmd, capture_output=True, text=True, timeout=timeout,
-                                  env=env, cwd=ROOT)
-            seconds = time.perf_counter() - t0
-        lines = proc.stdout.strip().splitlines()
-        check(proc.returncode == 0 and len(lines) >= 2 and lines[-1].startswith("LAUNCHES ")
-              and lines[-2].startswith(ok),
-              f"examples: {stem} exit {proc.returncode}: {proc.stdout[-3000:]} "
-              f"{proc.stderr[-3000:]}")
-        launches = json.loads(lines[-1].removeprefix("LAUNCHES "))
-        for name, count in launches.items():
+    with tempfile.TemporaryDirectory(prefix=f"{stem}_") as tmp:
+        extra = ["--ckpt-dir", tmp] if stem == "train_lm" else []
+        cmd = [sys.executable, "-c", _EXAMPLE_RUNNER,
+               str(ROOT / "examples" / f"{stem}_torch.py"), *args, *extra,
+               *([] if dev.type == "cuda" else ["--device", "cpu"])]
+        t0 = time.perf_counter()
+        proc = subprocess.run(cmd, capture_output=True, text=True, timeout=timeout,
+                              env=env, cwd=ROOT)
+        seconds = time.perf_counter() - t0
+    lines = proc.stdout.strip().splitlines()
+    check(proc.returncode == 0 and len(lines) >= 2 and lines[-1].startswith("LAUNCHES ")
+          and lines[-2].startswith(ok),
+          f"examples: {stem} exit {proc.returncode}: {proc.stdout[-3000:]} "
+          f"{proc.stderr[-3000:]}")
+    return {"seconds": seconds, "ok_line": lines[-2],
+            "launches": json.loads(lines[-1].removeprefix("LAUNCHES "))}
+
+
+def phase_examples(dev: torch.device) -> dict:
+    """Each ``examples/*_torch.py`` as a process of its own on the card
+    (``_run_example``), in ``EXAMPLE_STAGES``; then no pool helper of
+    theirs left behind (an example's fork server is not this script's
+    descendant once the example has exited).  Returns the launches summed
+    over the examples."""
+    check(sorted(s for stage in EXAMPLE_STAGES for stream in stage for s in stream)
+          == sorted(EXAMPLE_RUNS), "examples: the stages do not hold every example once")
+    before = _pool_helpers()
+    out = {}
+    for stage in EXAMPLE_STAGES:
+        with concurrent.futures.ThreadPoolExecutor(len(stage)) as pool:
+            runs = [pool.submit(lambda stream=stream: {s: _run_example(s, dev) for s in stream})
+                    for stream in stage]
+            out.update({k: v for run in runs for k, v in run.result().items()})
+    total = {}
+    for row in out.values():
+        for name, count in row["launches"].items():
             total[name] = total.get(name, 0) + count
-        deadline = time.perf_counter() + 10.0
-        while (left := {p: c for p, c in _pool_helpers().items() if p not in before}) \
-                and time.perf_counter() < deadline:
-            time.sleep(0.05)
-        check(not left, f"examples: {stem} left pool helpers running: {left}")
-        out[stem] = {"seconds": seconds, "ok_line": lines[-2], "launches": launches}
-    emit(phase="examples", **out)
+    deadline = time.perf_counter() + 10.0
+    while (left := {p: c for p, c in _pool_helpers().items() if p not in before}) \
+            and time.perf_counter() < deadline:
+        time.sleep(0.05)
+    check(not left, f"examples: pool helpers left running: {left}")
+    emit(phase="examples", stages=EXAMPLE_STAGES, **{s: out[s] for s in EXAMPLE_RUNS})
     return total
 
 
@@ -3104,6 +3424,7 @@ def main() -> int:
     import repro_torch  # noqa: F401  (fails here when run outside the repo)
 
     seconds = {}  # each phase's wall seconds, printed before the results
+    t_start = time.perf_counter()
 
     def timed(name, fn):
         t0 = time.perf_counter()
@@ -3135,6 +3456,8 @@ def main() -> int:
     by_path["group_job"] = timed("group_job", lambda: phase_group_job(
         group_inputs, info["nvidia_smi"]))
     del group_inputs
+    by_path["mesh"] = timed("mesh", lambda: phase_mesh(info["nvidia_smi"], dev))
+    _, by_path["mesh_cli"] = timed("mesh_cli", lambda: _counted(lambda: phase_mesh_cli(dev)))
     by_path["analysis"] = timed("analysis", lambda: phase_analysis(dev))
     by_path["examples"] = timed("examples", lambda: phase_examples(dev))
     timed("stop_workers", phase_stop_workers)
@@ -3142,10 +3465,12 @@ def main() -> int:
     torch.cuda.empty_cache()
     _, by_path["launch"] = timed("launch", lambda: _counted(
         lambda: phase_launch(dev, kernels[0])))
-    emit(phase="seconds", **seconds, total=round(sum(seconds.values()), 2))
+    # total: the phases' sum; wall: the script's
+    emit(phase="seconds", **seconds, total=round(sum(seconds.values()), 2),
+         wall=round(time.perf_counter() - t_start, 2))
     check(not _descendants(), f"processes still running: {_descendants()}")
-    for path in ("schemes", "serving", "train", "families", "proc_job",
-                 "proc_mux", "examples", "launch"):  # they run none of the kernels
+    for path in ("schemes", "serving", "train", "families", "proc_job", "proc_mux",
+                 "mesh", "mesh_cli", "examples", "launch"):  # they run none of the kernels
         check(not any(by_path[path].values()), f"{path} launched {by_path[path]}")
     want = 3 * WORKERS * (1 + GROUP_REPEATS)  # configurations x ranks x applies
     check({k: v for k, v in by_path["group_job"].items() if v}

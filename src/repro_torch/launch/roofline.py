@@ -19,7 +19,7 @@ Terms (per training or serving step, priced on the NVIDIA H100 SXM data
 sheet, ``launch.mesh``):
     compute_s    = counted FLOPs per device / 989e12 (dense bf16)
     memory_s     = analytic HBM bytes per device / 3.35e12
-    collective_s = None: no collective is counted without a process group
+    collective_s = None: the dry run counts no collective bytes yet
                    (ROADMAP queue 1, item 8b); ``dominant`` is taken over
                    the terms that exist.
 
@@ -236,7 +236,7 @@ def analyze_cell(arch: str, shape: str, *, chips: int = 256,
     mem_model = analytic_memory_bytes(cfg, shape, chips=chips)
     compute_s = total["flops"] / PEAK_FLOPS_BF16
     memory_s = mem_model / HBM_BW
-    coll_s = None  # no collective is counted without a process group (ICI_BW)
+    coll_s = None  # the dry run counts no collective bytes yet (ICI_BW)
     terms = {"compute_s": compute_s, "memory_s": memory_s, "collective_s": coll_s}
     present = {k: v for k, v in terms.items() if v is not None}
     dominant = max(present, key=present.get)

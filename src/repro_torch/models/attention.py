@@ -6,14 +6,24 @@ back to the query's dtype; masked scores are ``NEG_INF`` (not -inf), as in the J
 a fully masked row stays finite.  Cross-attention (the vlm and encdec
 families) attends, unmasked and without RoPE, over a memory: image tokens
 or the encoder's output.
+
+Under a ``DeviceMesh`` the projections put their head axis over "model"
+where the head count divides among the model shards, and replicate it
+otherwise (the reference's GQA-TP rule), with the batch over "dp"; each
+rank attends over its own batch and heads (``local_map``), and the
+self-attention output is placed over "dp".  Cross-attention places
+nothing yet (ROADMAP queue 1, item 8b).
 """
 
 from __future__ import annotations
 
+import functools
 import math
 
 import torch
 
+from repro_torch.launch import meshctx
+from repro_torch.launch.meshctx import maybe_shard
 from repro_torch.models.layers import ParamDef, apply_rope
 
 NEG_INF = -2.0 ** 30
@@ -45,11 +55,27 @@ def _mm(x: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
     return x.to(dt) @ w.to(dt)
 
 
-def _project(x: torch.Tensor, p: dict, cfg, heads: int, name: str) -> torch.Tensor:
+def _linear(x: torch.Tensor, p: dict, cfg, name: str) -> torch.Tensor:
+    """The projection (..., heads * hd), its bias added."""
     out = _mm(x, p[f"w{name}"])
     if cfg.qkv_bias and name in ("q", "k", "v"):
         out = out + p[f"b{name}"]
-    return out.reshape(*out.shape[:-1], heads, cfg.hd)
+    return out
+
+
+def _split_heads(t: torch.Tensor, cfg) -> torch.Tensor:
+    return t.reshape(*t.shape[:-1], t.shape[-1] // cfg.hd, cfg.hd)
+
+
+def _project(x: torch.Tensor, p: dict, cfg, heads: int, name: str) -> torch.Tensor:
+    return _split_heads(_linear(x, p, cfg, name), cfg)
+
+
+def _head_axis(heads: int):
+    """GQA-TP (the reference's ``_proj``): the head axis over "model" only
+    where the head count divides among the model shards; else replicated
+    over "model", cheaper than repartitioning K/V."""
+    return "model" if heads % meshctx.axis_size("model") == 0 else None
 
 
 def _sdpa(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
@@ -99,9 +125,26 @@ def self_attention(x: torch.Tensor, p: dict, cfg, positions: torch.Tensor, *,
     (in place) at ``length``, and the queries attend over the whole cache,
     masked to the positions written so far."""
     B, S, _ = x.shape
-    q = _project(x, p, cfg, cfg.num_heads, "q")
-    k = _project(x, p, cfg, cfg.num_kv_heads, "k")
-    v = _project(x, p, cfg, cfg.num_kv_heads, "v")
+    q, k, v = (maybe_shard(_linear(x, p, cfg, n), "dp", None, _head_axis(h))
+               for n, h in (("q", cfg.num_heads), ("k", cfg.num_kv_heads),
+                            ("v", cfg.num_kv_heads)))
+    # each rank attends over its own (batch, heads) slice (``local_map``;
+    # the head split, RoPE and the softmax are per head): heads over
+    # "model" where both head counts divide among the model shards, so a
+    # query shard reads its own K/V shard, else replicated
+    both = _head_axis(cfg.num_heads) if _head_axis(cfg.num_kv_heads) else None
+    qkv = ("dp", None, both)
+    out = meshctx.local(functools.partial(_attend, cfg=cfg, causal=causal, cache=cache),
+                        (qkv, qkv, qkv, None), (qkv,))(q, k, v, positions)
+    return maybe_shard(_mm(out, p["wo"]), "dp", None, None)
+
+
+def _attend(q, k, v, positions, *, cfg, causal: bool, cache: dict | None) -> torch.Tensor:
+    """Projected q, k, v (B, S, heads * hd) -> the attention output
+    (B, S, H * hd): heads split, RoPE, the cache written and read, the
+    masked softmax."""
+    B, S, _ = q.shape
+    q, k, v = (_split_heads(t, cfg) for t in (q, k, v))
     if cfg.use_rope:
         q = apply_rope(q, positions, cfg.rope_theta)
         k = apply_rope(k, positions, cfg.rope_theta)
@@ -109,17 +152,15 @@ def self_attention(x: torch.Tensor, p: dict, cfg, positions: torch.Tensor, *,
     if cache is not None:
         _write_cache(cache, k, v, cfg)
         k, v = cache["k"], cache["v"]
-        tpos = torch.arange(k.shape[1], device=x.device)
-        qpos = cache["length"] + torch.arange(S, device=x.device)
+        tpos = torch.arange(k.shape[1], device=q.device)
+        qpos = cache["length"] + torch.arange(S, device=q.device)
         mask = (tpos[None, :] <= qpos[:, None])[None, None, None]     # (S, T)
     elif causal:
-        tpos = torch.arange(S, device=x.device)
+        tpos = torch.arange(S, device=q.device)
         mask = (tpos[None, :] <= tpos[:, None])[None, None, None]
     else:
         mask = None
-
-    out = _sdpa(q, k, v, mask)
-    return _mm(out.reshape(B, S, -1), p["wo"])
+    return _sdpa(q, k, v, mask).reshape(B, S, -1)
 
 
 def cross_attention(x: torch.Tensor, memory: torch.Tensor | None, p: dict, cfg, *,

@@ -6,6 +6,11 @@ cast back before the scale,
 RoPE rotates halves (not pairs) in f32, and ``gelu`` is the tanh form.  The
 two causal-LM cross-entropy functions (``cross_entropy_chunked`` and
 ``cross_entropy_fused``) scan token chunks and never hold the (T, V) logits.
+
+Under a ``DeviceMesh`` (``launch.meshctx``) the tensors are DTensors and
+``maybe_shard`` places the MLP's hidden, the logits and the fused cross
+entropy's backward products where the JAX package constrains them; with
+no mesh each call is the tensor itself.
 """
 
 from __future__ import annotations
@@ -16,6 +21,9 @@ import math
 import torch
 import torch.nn.functional as F
 from torch.utils.checkpoint import checkpoint
+
+from repro_torch.launch import meshctx
+from repro_torch.launch.meshctx import maybe_shard
 
 
 # ------------------------------ param defs ---------------------------------
@@ -150,6 +158,7 @@ def mlp_apply(x: torch.Tensor, p: dict, act: str, bias: bool) -> torch.Tensor:
         if bias:
             h = h + p["b_up"]
         h = activation(h, act)
+    h = maybe_shard(h, "dp", None, "model")
     out = h @ p["w_down"]
     if bias:
         out = out + p["b_down"]
@@ -183,13 +192,21 @@ def _chunks(x: torch.Tensor, labels: torch.Tensor, chunk: int):
 
 def _label_logit(logits: torch.Tensor, lch: torch.Tensor) -> torch.Tensor:
     """Each row's logit at its label (any value where the label is -1:
-    the caller weights those rows by 0)."""
-    return logits.gather(-1, lch.clamp_min(0)[:, None].long())[:, 0]
+    the caller weights those rows by 0).  Over vocab-sharded logits the
+    gathered column is placed before it is squeezed: DTensor's masked
+    partial of a gather resolves only in the gather's own shape."""
+    picked = logits.gather(-1, lch.clamp_min(0)[:, None].long())
+    return maybe_shard(picked, "dp", None)[:, 0]
 
 
 def _chunk_nll(xch: torch.Tensor, head_w: torch.Tensor, lch: torch.Tensor,
-               logit_dtype: torch.dtype):
-    logits = (xch @ head_w).to(logit_dtype)
+               logit_dtype: torch.dtype, mesh=None):
+    with meshctx.use_mesh(mesh), meshctx.replicate_plain():
+        return _chunk_nll_in(xch, head_w, lch, logit_dtype)
+
+
+def _chunk_nll_in(xch, head_w, lch, logit_dtype):
+    logits = maybe_shard((xch @ head_w).to(logit_dtype), "dp", "model")
     lse = torch.logsumexp(logits, dim=-1)
     valid = (lch >= 0).float()
     return ((lse - _label_logit(logits, lch)) * valid).sum(), valid.sum()
@@ -205,18 +222,21 @@ def cross_entropy_chunked(x: torch.Tensor, head_w: torch.Tensor, labels: torch.T
     NLL and dropped; ``torch.utils.checkpoint`` rebuilds them chunk by
     chunk in the backward pass (the reference's ``jax.checkpoint``), so
     the peak is one chunk x V.  Returns the mean NLL over labelled tokens
-    (f32)."""
+    (f32).  The recompute may run on autograd's device thread, so the mesh
+    is passed in, not read from the context there."""
     tot = torch.zeros((), dtype=torch.float32, device=x.device)
     cnt = torch.zeros((), dtype=torch.float32, device=x.device)
+    mesh = meshctx.get_mesh()
     for xch, lch in _chunks(x, labels, chunk):
-        s, c = checkpoint(_chunk_nll, xch, head_w, lch, logit_dtype, use_reentrant=False)
+        s, c = checkpoint(_chunk_nll, xch, head_w, lch, logit_dtype, mesh,
+                          use_reentrant=False)
         tot, cnt = tot + s, cnt + c
     return tot / cnt.clamp_min(1.0)
 
 
 def _softmax_pieces(xch: torch.Tensor, head_w: torch.Tensor, lch: torch.Tensor):
     """The chunk's f32 softmax, its summed NLL and the labelled-row mask."""
-    logits = (xch @ head_w).float()
+    logits = maybe_shard((xch @ head_w).float(), "dp", "model")
     m = logits.amax(-1, keepdim=True)
     expl = torch.exp(logits - m)
     sumexp = expl.sum(-1, keepdim=True)
@@ -226,30 +246,70 @@ def _softmax_pieces(xch: torch.Tensor, head_w: torch.Tensor, lch: torch.Tensor):
     return expl / sumexp, nll, valid
 
 
+def _minus_label(probs: torch.Tensor, lch: torch.Tensor, valid: torch.Tensor,
+                 vocab: int) -> torch.Tensor:
+    """``probs`` (rows, vocab) less ``valid`` at each row's label, in place:
+    the columns of this rank's vocab shard where the ``vocab`` columns are
+    sharded over "model" (DTensor's split: shards of ceil(vocab / tp), the
+    last ones shorter where tp does not divide it)."""
+    cols = lch.clamp_min(0).long()
+    mesh = meshctx.device_mesh()
+    if mesh is not None and "model" in mesh.mesh_dim_names:
+        model = mesh["model"]
+        cols = cols - model.get_local_rank() * -(-vocab // model.size())
+        inside = (cols >= 0) & (cols < probs.shape[1])
+        cols, valid = cols.clamp(0, probs.shape[1] - 1), torch.where(inside, valid, 0)
+    rows = torch.arange(lch.shape[0], device=lch.device)
+    return probs.index_put_((rows, cols), -valid, accumulate=True)
+
+
+def _minus_label_placed(probs, lch: torch.Tensor, valid: torch.Tensor):
+    """``_minus_label`` on vocab-sharded ``probs``: on each rank's own
+    shard, since DTensor has no in-place rule for it, and not through
+    ``meshctx.local``, whose ``local_map`` gives its output the shape of an
+    even split (V = tp * the shard) where tp does not divide V."""
+    from torch.distributed.tensor import DTensor
+
+    if not isinstance(probs, DTensor):
+        return _minus_label(probs, lch, valid, probs.shape[1])
+
+    def own(t, *axes):
+        t = maybe_shard(t, *axes)
+        return t.to_local() if isinstance(t, DTensor) else t
+
+    probs = maybe_shard(probs, "dp", "model")
+    _minus_label(probs.to_local(), own(lch, "dp"), own(valid, "dp"), probs.shape[1])
+    return probs
+
+
 class _FusedChunkNLL(torch.autograd.Function):
     """One chunk's (summed NLL, label count) with the reference's
     hand-written backward (``_fused_chunk_nll``): only (xch, head_w, lch)
     are saved, the softmax is recomputed, and the two backward products
     run in bf16 -- ``dlogits``, ``head_w`` and ``xch`` are cast to bf16 at
-    the reference's places, so the gradient rounds as the reference's does."""
+    the reference's places, so the gradient rounds as the reference's does.
+    The backward may run on autograd's device thread: it reads the mesh
+    the forward saved."""
 
     @staticmethod
     def forward(ctx, xch, head_w, lch):
         _, nll, valid = _softmax_pieces(xch, head_w, lch)
         ctx.save_for_backward(xch, head_w, lch)
+        ctx.mesh = meshctx.get_mesh()
         return nll, valid.sum()
 
     @staticmethod
     def backward(ctx, g_nll, g_cnt):
         xch, head_w, lch = ctx.saved_tensors
-        probs, _, valid = _softmax_pieces(xch, head_w, lch)
-        # probs - onehot(label) in place, the one-hot never built (rows
-        # labelled -1 add -0 and are zeroed by ``valid`` below)
-        rows = torch.arange(lch.shape[0], device=lch.device)
-        probs.index_put_((rows, lch.clamp_min(0).long()), -valid, accumulate=True)
-        dlogits = (probs * (valid * g_nll)[:, None]).to(torch.bfloat16)
-        dx = (dlogits @ head_w.to(torch.bfloat16).T).to(xch.dtype)
-        dW = (xch.to(torch.bfloat16).T @ dlogits).to(head_w.dtype)
+        with meshctx.use_mesh(ctx.mesh), meshctx.replicate_plain():
+            probs, _, valid = _softmax_pieces(xch, head_w, lch)
+            # probs - onehot(label) in place, the one-hot never built (rows
+            # labelled -1 add -0 and are zeroed by ``valid`` below)
+            probs = _minus_label_placed(probs, lch, valid)
+            dlogits = (probs * (valid * g_nll)[:, None]).to(torch.bfloat16)
+            dlogits = maybe_shard(dlogits, "dp", "model")
+            dx = maybe_shard(dlogits @ head_w.to(torch.bfloat16).T, "dp", None).to(xch.dtype)
+            dW = maybe_shard(xch.to(torch.bfloat16).T @ dlogits, None, "model").to(head_w.dtype)
         return dx, dW, None
 
 

@@ -15,11 +15,17 @@ set reconstructs every expert's product.  The code comes from the port's
 scheme registry (``repro_torch.coded.plan``), designed once per
 (scheme, E, N, seed).
 
-On one card there is no mesh: the dp-chunk-local dispatch
-(``opt_moe_local_dispatch``) routes one chunk of all T tokens, and its
-combine is the plain gather and scatter-add.  The combine over a mesh
-(``opt_moe_shardmap_combine``) waits for the port's device mesh (ROADMAP
-queue 1, item 8).
+Under a ``DeviceMesh`` (``launch.meshctx``) the experts are sharded over
+"model" (expert parallel), as are the coded workers' outputs.  The global
+dispatch routes the tokens replicated over the mesh (where the reference's
+GSPMD replicates the sort and scatter); the dp-chunk-local dispatch
+(``opt_moe_local_dispatch``) cuts the tokens into one chunk per dp shard
+(``_dp_chunks``) and each rank routes and packs its own, in
+``local_map``.  Its combine gathers the experts' rows back to the tokens,
+or with ``opt_moe_shardmap_combine`` the reference's ``shard_map``: each
+rank gathers only its own experts' rows into an f32 partial and one bf16
+``all_reduce`` over "model" sums them.  With no mesh and one chunk every
+call here is the one-card path.
 """
 
 from __future__ import annotations
@@ -31,6 +37,8 @@ import functools
 import numpy as np
 import torch
 
+from repro_torch.launch import meshctx
+from repro_torch.launch.meshctx import local, maybe_shard
 from repro_torch.models.layers import ParamDef, activation
 
 
@@ -116,8 +124,11 @@ def _coded_expert_mm(x_e: torch.Tensor, W: torch.Tensor, cfg) -> torch.Tensor:
                                     coded_moe_num_workers(cfg), x_e.device)
     D = _CODED_D.get()
     D = dec_full if D is None else D.to(torch.float32)
-    prod = torch.matmul(x_e, W).float()                       # (E, C, F)
+    # (E, C, F), each rank's experts whole: the encode mixes the experts,
+    # and DTensor's einsum cannot flatten (C, F) with F sharded
+    prod = maybe_shard(torch.matmul(x_e, W).float(), "model", None, None)
     y = torch.einsum("ke,ecf->kcf", enc, prod)                # worker outputs
+    y = maybe_shard(y, "model", None, None)                   # over the model shards
     return torch.einsum("ek,kcf->ecf", D, y).to(x_e.dtype)
 
 
@@ -130,55 +141,95 @@ def _top_k(probs: torch.Tensor, k: int) -> tuple[torch.Tensor, torch.Tensor]:
     return probs.gather(-1, ids), ids
 
 
-def _moe(x: torch.Tensor, p: dict, cfg, coded: bool):
-    B, S, d = x.shape
-    E, k = cfg.moe.num_experts, cfg.moe.top_k
-    T = B * S
-    xt = x.reshape(T, d)
-
-    logits = (xt @ p["router"]).float()
+def _route(xt: torch.Tensor, router: torch.Tensor, E: int, k: int, capacity: int):
+    """One chunk's route and pack: xt (T, d) -> buf (E, capacity, d), the
+    unpack indices se, st, pos and gates sg (T*k,), the router's probs
+    (T, E) and each token's first expert one-hot (T, E), f32."""
+    T, d = xt.shape
+    logits = (xt @ router).float()
     probs = torch.softmax(logits, dim=-1)
     gate_vals, expert_ids = _top_k(probs, k)                  # (T, k)
     gate_vals = gate_vals / gate_vals.sum(-1, keepdim=True).clamp_min(1e-9)
-
-    # aux load-balance loss (Switch-style): E * sum_e f_e * p_e
-    me = probs.mean(0)
-    ce = torch.nn.functional.one_hot(expert_ids[:, 0], E).float().mean(0)
-    aux = E * (me * ce).sum()
-
-    capacity = int(max(1, (T * k * cfg.moe.capacity_factor) // E))
+    first = torch.nn.functional.one_hot(expert_ids[:, 0], E).float()
 
     flat_expert = expert_ids.reshape(-1)                      # (T*k,)
-    flat_gate = gate_vals.reshape(-1).to(x.dtype)
-    flat_token = torch.arange(T, device=x.device).repeat_interleave(k)
+    flat_gate = gate_vals.reshape(-1).to(xt.dtype)
+    flat_token = torch.arange(T, device=xt.device).repeat_interleave(k)
 
     order = torch.argsort(flat_expert, stable=True)
     se, st, sg = flat_expert[order], flat_token[order], flat_gate[order]
     # position within expert: index minus the start of its expert's segment
-    starts = torch.searchsorted(se, torch.arange(E, device=x.device))
-    pos = torch.arange(T * k, device=x.device) - starts[se]
+    starts = torch.searchsorted(se, torch.arange(E, device=xt.device))
+    pos = torch.arange(T * k, device=xt.device) - starts[se]
     keep = pos < capacity
     pos = torch.where(keep, pos, 0)
     sg = torch.where(keep, sg, 0)
 
-    buf = torch.zeros((E, capacity, d), dtype=x.dtype, device=x.device)
-    buf.index_put_((se, pos), torch.where(keep[:, None], xt[st], 0),
-                   accumulate=True)
+    buf = torch.zeros((E, capacity, d), dtype=xt.dtype, device=xt.device)
+    buf.index_put_((se, pos), torch.where(keep[:, None], xt[st], 0), accumulate=True)
+    return buf, se, st, pos, sg, probs, first
 
+
+def _unpack(out_buf, se, st, pos, sg, T: int) -> torch.Tensor:
+    """One chunk's combine: each (token, choice) row of ``out_buf``
+    weighted by its gate and summed into its token, (T, d)."""
+    contrib = out_buf[se, pos] * sg[:, None]                  # (T*k, d)
+    out = torch.zeros((T, out_buf.shape[-1]), dtype=out_buf.dtype, device=out_buf.device)
+    out.index_put_((st,), contrib, accumulate=True)
+    return out
+
+
+def _ffn(buf: torch.Tensor, w_gate, w_up, w_down) -> torch.Tensor:
+    h = activation(torch.matmul(buf, w_gate), "silu")
+    h = h * torch.matmul(buf, w_up)
+    return torch.matmul(h, w_down)
+
+
+def _experts(buf: torch.Tensor, p: dict, cfg, coded: bool, lead: tuple) -> torch.Tensor:
+    """The expert FFN on the packed buffer (..., E, C, d), placed over
+    ``lead`` + ("model", None, None).  Uncoded, each rank runs its own
+    experts on its own buffer rows (``local``), their weights gathered
+    over "data" (FSDP); a weight's gradient then sums over the dp shards
+    where the buffer is split over them.  The coded products mix every
+    expert, so they run on the DTensors."""
     if coded:
         h = activation(_coded_expert_mm(buf, p["w_gate"], cfg), "silu")
         h = h * _coded_expert_mm(buf, p["w_up"], cfg)
+        h = maybe_shard(h, *lead, "model", None, None)
         out_buf = _coded_expert_mm(h, p["w_down"], cfg)
     else:
-        h = activation(torch.matmul(buf, p["w_gate"]), "silu")
-        h = h * torch.matmul(buf, p["w_up"])
-        out_buf = torch.matmul(h, p["w_down"])
+        ex, w = lead + ("model", None, None), ("model", None, None)
+        summed = {i: ("pod", "data") for i in (1, 2, 3)} if lead else None
+        out_buf = local(_ffn, (ex, w, w, w), (ex,), grad_partial=summed)(
+            buf, p["w_gate"], p["w_up"], p["w_down"])
+    return maybe_shard(out_buf, *lead, "model", None, None)
 
-    # unpack: gather each (token, choice) result, weighted-sum into tokens
-    contrib = out_buf[se, pos] * sg[:, None]                  # (T*k, d)
-    out = torch.zeros((T, d), dtype=x.dtype, device=x.device)
-    out.index_put_((st,), contrib, accumulate=True)
-    return out.reshape(B, S, d), aux
+
+def _aux(probs: torch.Tensor, first: torch.Tensor, E: int) -> torch.Tensor:
+    """The Switch-style load-balance loss E * sum_e f_e * p_e over every
+    token (the chunk dims leading)."""
+    dims = tuple(range(probs.dim() - 1))
+    return E * (probs.mean(dims) * first.mean(dims)).sum()
+
+
+def _moe(x: torch.Tensor, p: dict, cfg, coded: bool):
+    """The global dispatch: every token routed at once.  Under a mesh the
+    route and the combine run on tokens replicated over it, as the
+    reference's GSPMD replicates its global argsort and scatter."""
+    B, S, d = x.shape
+    E, k = cfg.moe.num_experts, cfg.moe.top_k
+    T = B * S
+    capacity = int(max(1, (T * k * cfg.moe.capacity_factor) // E))
+    rep = ()
+    route = local(functools.partial(_route, E=E, k=k, capacity=capacity),
+                   (rep, rep), (rep,) * 7)
+    buf, se, st, pos, sg, probs, first = route(x.reshape(T, d), p["router"])
+    aux = _aux(probs, first, E)
+    buf = maybe_shard(buf, "model", None, None)
+    out_buf = _experts(buf, p, cfg, coded, ())
+    out = local(functools.partial(_unpack, T=T), (rep,) * 5, (rep,))(
+        out_buf, se, st, pos, sg)
+    return maybe_shard(out.reshape(B, S, d), "dp", None, None), aux
 
 
 def moe_apply(x: torch.Tensor, p: dict, cfg):
@@ -193,7 +244,116 @@ def moe_apply(x: torch.Tensor, p: dict, cfg):
     return _moe(x, p, cfg, coded=getattr(cfg, "opt_coded_moe", False))
 
 
+def _dp_chunks(T: int) -> int:
+    """The number of token chunks: the active mesh's dp degree (pod x
+    data), halved until it divides T, so each chunk's route and pack stay
+    on one dp shard."""
+    dp = meshctx.dp_size()
+    while T % dp:
+        dp //= 2
+    return max(dp, 1)
+
+
 def moe_apply_local(x: torch.Tensor, p: dict, cfg):
-    """The dp-chunk-local dispatch on one card: one dp chunk (no mesh), so
-    the route, pack and combine are ``moe_apply``'s, uncoded."""
-    return _moe(x, p, cfg, coded=False)
+    """dp-chunk-local dispatch (``opt_moe_local_dispatch``): the tokens in
+    X = ``_dp_chunks(T)`` chunks, each routed and packed into its own
+    (E, Cl, d) buffer with capacity Cl from its Tl = T / X tokens.  Under
+    a ``DeviceMesh`` each rank routes its own dp shard's chunks in
+    ``local_map`` (tokens are replicated over "model", so the buffer placed
+    ("dp", "model", ...) is a local slice: no dispatch collective).  With
+    one chunk and no ``DeviceMesh`` it is the global dispatch, uncoded."""
+    B, S, d = x.shape
+    E, k = cfg.moe.num_experts, cfg.moe.top_k
+    T = B * S
+    X = _dp_chunks(T)
+    if X == 1 and meshctx.device_mesh() is None:
+        return _moe(x, p, cfg, coded=False)
+    Tl = T // X
+    Cl = int(max(1, (Tl * k * cfg.moe.capacity_factor) // E))
+
+    def route_chunks(xt, router):
+        outs = [_route(xc, router, E, k, Cl) for xc in xt]
+        return tuple(torch.stack(o) for o in zip(*outs, strict=True))
+
+    dp3, dp2 = ("dp", None, None), ("dp", None)
+    if meshctx.device_mesh() is not None and B % meshctx.dp_size():
+        raise ValueError(f"the local dispatch on a mesh needs the batch ({B}) to divide "
+                         f"among its {meshctx.dp_size()} dp shards")
+    # (B, S) tokens <-> (X, Tl) chunks on each rank's own rows: the chunks
+    # of a dp shard are its batch rows (DTensor's view rules misplace the
+    # gradient of this reshape across sharded dims).  The router's gradient
+    # sums over the dp shards' chunks.
+    buf, se, st, pos, sg, probs, first = local(
+        route_chunks, (dp3, ()), (dp3 + (None,), dp2, dp2, dp2, dp2, dp3, dp3),
+        grad_partial={1: ("pod", "data")})(
+        local(lambda t: t.reshape(-1, Tl, d), (dp3,), (dp3,))(x), p["router"])
+    aux = _aux(probs, first, E)
+    buf = maybe_shard(buf, "dp", "model", None, None)         # a local slice
+    out_buf = _experts(buf, p, cfg, False, ("dp",))
+    out = maybe_shard(_combine(out_buf, se, st, pos, sg, Tl, E, cfg), "dp", None, None)
+    return local(lambda t: t.reshape(-1, S, d), (dp3,), (dp3,))(out), aux
+
+
+class _SumOverModel(torch.autograd.Function):
+    """The bf16 all-reduce of the partials over the "model" group, whose
+    backward is the identity: the output is replicated over "model", so
+    each rank's partial gets the whole gradient."""
+
+    @staticmethod
+    def forward(ctx, partial, group):
+        import torch.distributed as dist
+
+        out = partial.clone()
+        dist.all_reduce(out, group=group)
+        return out
+
+    @staticmethod
+    def backward(ctx, g):
+        return g, None
+
+
+def _combine(out_buf, se, st, pos, sg, Tl: int, E: int, cfg) -> torch.Tensor:
+    """The local dispatch's unpack of (X, E, Cl, d) expert outputs back to
+    (X, Tl, d) tokens.
+
+    Default: each chunk's gather and scatter-add (``_unpack``), the
+    expert rows first gathered from their "model" shards.
+
+    ``opt_moe_shardmap_combine`` (the reference's hand-written
+    ``shard_map``), under a ``DeviceMesh`` with "model", E divisible among
+    the model shards and one chunk per dp shard: rank (dp, j) gathers only
+    the rows of experts [j E/tp, (j+1) E/tp), scatter-adds them into an f32
+    (Tl, d) partial, and one bf16 ``all_reduce`` over "model" sums the
+    partials."""
+    mesh = meshctx.device_mesh()
+    X = out_buf.shape[0]
+    tp = meshctx.axis_size("model")
+    dp4, dp2 = ("dp", None, None, None), ("dp", None)
+    use_shardmap = (cfg.opt_moe_shardmap_combine and mesh is not None
+                    and "model" in mesh.mesh_dim_names and E % tp == 0
+                    and X == meshctx.dp_size())
+    if not use_shardmap:
+        def unpack_chunks(ob, se_, st_, pos_, sg_):
+            return torch.stack([_unpack(*c, T=Tl) for c in zip(ob, se_, st_, pos_, sg_,
+                                                                 strict=True)])
+        return local(unpack_chunks, (dp4,) + (dp2,) * 4, (("dp", None, None),))(
+            out_buf, se, st, pos, sg)
+
+    E_loc = E // tp
+    group = mesh["model"].get_group()
+    e0 = mesh["model"].get_local_rank() * E_loc
+
+    def local_fn(ob, se_, st_, pos_, sg_):
+        # ob: (1, E_loc, Cl, d) this rank's experts; the indices (1, Tl*k)
+        rel = se_[0] - e0
+        mine = (rel >= 0) & (rel < E_loc)
+        rows = ob[0][rel.clamp(0, E_loc - 1), pos_[0]]        # (Tl*k, d)
+        contrib = torch.where(mine[:, None], rows * sg_[0][:, None], 0)
+        partial = torch.zeros((Tl, ob.shape[-1]), dtype=torch.float32, device=ob.device)
+        partial.index_put_((st_[0],), contrib.float(), accumulate=True)
+        return _SumOverModel.apply(partial.to(torch.bfloat16), group).to(ob.dtype)[None]
+
+    # a rank's gates get the gradient of its own experts' rows only
+    return local(local_fn, (("dp", "model", None, None),) + (dp2,) * 4,
+                  (("dp", None, None),), grad_partial={4: ("model",)})(
+        out_buf, se, st, pos, sg)

@@ -46,6 +46,8 @@ import torch
 from torch.utils.checkpoint import checkpoint
 
 from repro_torch.core.blocks import resolve_device
+from repro_torch.launch import meshctx
+from repro_torch.launch.meshctx import maybe_shard
 from repro_torch.launch.meshctx import spec as mesh_spec
 from repro_torch.models import attention as attn_lib
 from repro_torch.models import moe as moe_lib
@@ -244,6 +246,14 @@ class Model:
         """One layer: (x, aux, the cache leaves this step replaced).  The
         k/v caches are written in place and not returned."""
         cfg = self.cfg
+        # Megatron-SP (opt_seq_parallel, training only): block outputs are
+        # placed sequence-sharded over "model", so each TP sum is a
+        # reduce-scatter and the norms and residual adds run sharded
+        sp = cache is None and cfg.opt_seq_parallel
+
+        def out_shard(t):
+            return maybe_shard(t, "dp", "model", None) if sp else t
+
         aux = torch.zeros((), dtype=torch.float32, device=x.device)
         new = {}
         h = norm(x, p["norm1"], cfg.norm)
@@ -264,7 +274,7 @@ class Model:
             out, new = rwkv_lib.rwkv_apply(h, p["mixer"], cfg, state=cache)
         else:
             raise ValueError(mixer)
-        x = x + out
+        x = x + out_shard(out)
 
         h = norm(x, p["norm2"], cfg.norm)
         if ffn == "moe":
@@ -276,7 +286,7 @@ class Model:
                 new["last_cm"] = last_cm
         else:
             out = mlp_apply(h, p["ffn"], cfg.act, cfg.mlp_bias)
-        return x + out, aux, new
+        return x + out_shard(out), aux, new
 
     def _run_groups(self, x, params, positions, cache, pos0, memory):
         """The groups in order; group g reads the views ``leaf[g]`` of the
@@ -286,16 +296,22 @@ class Model:
         With ``cfg.remat``, grad enabled and no cache, each group runs under
         ``torch.utils.checkpoint`` (the reference's ``jax.checkpoint`` of
         its scan body): the backward pass recomputes it, so activations
-        stay about one group deep.  ``opt_seq_parallel`` and
-        ``opt_remat_save_tp`` only place shardings or name saved values in
-        the reference; on one card they change no value and are plain
-        remat here.  The recompute may run on autograd's device thread,
-        which does not see this thread's context variables (the coded
-        expert FFN's decode matrix), so both passes run in one copy of the
-        forward's context."""
-        p_views = _unbind(params["groups"])
+        stay about one group deep.  ``opt_remat_save_tp`` only names saved
+        values in the reference; it is plain remat here.  Under a mesh each
+        group's output is placed ("dp", "model", None) with
+        ``opt_seq_parallel`` in training (the residual stream
+        sequence-sharded between blocks), ("dp", None, None) otherwise.
+        The recompute may run on autograd's device thread, which does not
+        see this thread's context variables (the mesh, the coded expert
+        FFN's decode matrix), so both passes run in one copy of the
+        forward's context.
 
-        def group(x, g, memory):
+        Under a mesh the stacked parameters' group axis is replicated, so
+        ``unbind`` keeps each view's placements on the dims that remain."""
+        p_views = _unbind(params["groups"])
+        sp = cache is None and self.cfg.opt_seq_parallel
+
+        def layers(x, g, memory):
             p_g = _take(p_views, g)
             c_g = _take(cache["groups"], g) if cache is not None else None
             aux = torch.zeros((), dtype=torch.float32, device=x.device)
@@ -306,7 +322,11 @@ class Model:
                 aux = aux + a
                 if new:
                     _store(cache["groups"][slot], new, g)
-            return x, aux
+            return maybe_shard(x, "dp", "model" if sp else None, None), aux
+
+        def group(x, g, memory):
+            with meshctx.replicate_plain():
+                return layers(x, g, memory)
 
         remat = self.cfg.remat and cache is None and torch.is_grad_enabled()
         ctx = contextvars.copy_context() if remat else None
@@ -354,10 +374,14 @@ class Model:
         ``frames`` (B, encoder_seq, d) go through the encoder (encdec),
         ``vision`` (B, vision_tokens, d) is the memory (vlm); other
         families ignore them, as the reference does."""
+        with meshctx.replicate_plain():
+            return self._forward(params, tokens, extras, cache)
+
+    def _forward(self, params, tokens, extras, cache):
         cfg = self.cfg
         tokens = torch.as_tensor(tokens, device=self.device)
         S = tokens.shape[1]
-        x = params["embed"][tokens.long()]
+        x = maybe_shard(params["embed"][tokens.long()], "dp", None, None)
         pos0 = cache["pos"] if cache is not None else 0
         positions = pos0 + torch.arange(S, device=self.device)
         if not cfg.use_rope:
@@ -387,7 +411,8 @@ class Model:
     def logits(self, params: dict, x: torch.Tensor) -> torch.Tensor:
         """(..., V) in f32 (f64 for an f64 model)."""
         out = x @ self.head_weight(params)
-        return out.to(torch.promote_types(out.dtype, torch.float32))
+        return maybe_shard(out.to(torch.promote_types(out.dtype, torch.float32)),
+                           "dp", None, "model")
 
     def loss(self, params: dict, batch: dict) -> torch.Tensor:
         """batch: tokens (B, S), labels (B, S) (-1: no label) -> the mean
@@ -399,9 +424,10 @@ class Model:
         B, S, d = x.shape
         ce = cross_entropy_fused if self.cfg.opt_fused_ce else cross_entropy_chunked
         labels = torch.as_tensor(batch["labels"], device=self.device).reshape(-1)
-        nll = ce(x.reshape(B * S, d), self.head_weight(params), labels,
-                 chunk=self.ce_chunk or min(4096, B * S))
-        return nll + AUX_LOSS_COEF * aux
+        with meshctx.replicate_plain():
+            nll = ce(x.reshape(B * S, d), self.head_weight(params), labels,
+                     chunk=self.ce_chunk or min(4096, B * S))
+            return nll + AUX_LOSS_COEF * aux
 
     def prefill(self, params: dict, tokens, *, extras=None, cache: dict | None = None,
                 max_seq: int | None = None,

@@ -10,8 +10,8 @@
   ``run_group_job`` (the same with one worker a process, over a
   ``torch.distributed`` group), each returning an ``ExecutionReport``;
 * the process runtime: ``run_proc_job`` / ``ProcPool`` (one job over
-  worker processes that can be killed, frozen or slowed) and
-  ``MuxProcPool``, with the fault plans of ``runtime.chaos``
+  worker processes that can be killed, frozen or slowed; a
+  ``WorkerProcesses`` keeps them for the next job) and ``MuxProcPool``, with the fault plans of ``runtime.chaos``
   (``FaultPlan``, ``FaultLedger``, and ``FaultRealization``, the same plan
   on the simulator's timeline);
 * ``workergroup`` -- the worker axis as a process group: ``spawn_group``,
@@ -35,7 +35,8 @@ _EXPORTS = {
         "ExecutionReport", "JobMux", "MuxJob", "MuxResult", "run_coded_job",
         "run_device_job", "run_group_job", "run_live_job"),
     "repro_torch.runtime.chaos": ("FaultLedger", "FaultPlan", "FaultRealization"),
-    "repro_torch.runtime.procpool": ("MuxProcPool", "ProcPool", "run_proc_job"),
+    "repro_torch.runtime.procpool": ("MuxProcPool", "ProcPool", "WorkerProcesses",
+                                     "run_proc_job"),
     "repro_torch.runtime.workergroup": ("SharedArrays", "init_worker_group", "spawn_group"),
 }
 

@@ -51,23 +51,27 @@ host's cores.  The server never touches a device; each worker opens its
 own after the fork.
 
 Start-up is kept out of the job's clock.  A ``ProcPool`` worker receives
-its operands, puts them on the device, says hello and then waits for
-``go``, which the master sends once every worker said hello or ended
-(``timeout`` bounds the wait); ``MuxProcPool.start`` waits for every hello
-before a batch is sent.  The master opens its own device before ``go``
+its job with its operands, puts them on the device, says hello and then
+waits for ``go``, which the master sends once every worker said hello or
+ended (``timeout`` bounds the wait); ``MuxProcPool.start`` waits for every
+hello before a batch is sent.  A ``WorkerProcesses`` keeps a pool's
+processes for the next job (``run_proc_job(processes=)``), so only the
+first job pays their start-up.  The master opens its own device before ``go``
 (``_warm_device``), since it moves every arriving chunk there.  Spawn-to-hello times are reported apart
 (``decode_stats["startup"]``).
 
 Wire format (pickled tuples; per worker one simplex pipe each way).
 Master -> worker messages are sent by a thread of their own (``_Outbox``),
 so the master never blocks on a worker that is slow to read, frozen or
-dead.  ``ProcPool``: master -> worker ``("operands", A_blocks, B_blocks)``
-then ``("go",)``; worker -> master ``("hello", w, pid, startup)`` once,
-``("hb", w)`` every heartbeat interval from a daemon thread (beats keep
-flowing during a long chunk but stop when the process is frozen or dead),
-``("chunk", w, c, payload)`` per completed chunk in order, ``("done", w)``
-before a clean exit, ``("error", w, text)`` when it raised.  Pipe EOF
-without ``done`` is a crash, whatever the exit code says.
+dead.  ``ProcPool``: master -> worker ``("job", w, row_chunks, ...,
+A_blocks, B_blocks)`` then ``("go",)``, and ``("stop",)`` at the job's end
+where the process is kept; worker -> master ``("hello", w, pid, startup)``
+once a job, ``("hb", w)`` every heartbeat interval from a daemon thread
+(beats keep flowing during a long chunk but stop when the process is
+frozen or dead), ``("chunk", w, c, payload)`` per completed chunk in
+order, ``("done", w)`` after the last, ``("idle", w)`` on ``stop``,
+``("error", w, text)`` when it raised.  Pipe EOF without ``done`` is a
+crash, whatever the exit code says.
 """
 
 from __future__ import annotations
@@ -271,22 +275,28 @@ def _open_device(device: str) -> torch.device:
     return dev
 
 
-def _worker_main(worker, inbox, conn, device, t_spawn, row_chunks, n,
-                 num_chunks, start_chunk, chunk_sleep, hb_interval):
+def _worker_main(inbox, conn, device, t_spawn):
     """Subprocess entry point (process target; must stay module-level).
 
-    Opens the device, takes its operands from ``inbox``, says hello, and on
-    ``go`` computes the worker's ordered chunk stream exactly like the
-    thread runtime's ``worker_fn``, sending each result over ``conn``.  A
-    daemon heartbeat thread shares ``conn`` under a lock: beats prove the
-    *process* is scheduled, independent of chunk progress.  The hello
-    carries the worker's start-up: seconds from ``t_spawn`` (the master's
-    ``time.time()`` at the spawn) to this function, to open the device, to
-    put its operands there.
+    Opens the device once, then serves jobs until the master goes away.  A
+    job is ``("job", w, row_chunks, n, num_chunks, start_chunk,
+    chunk_sleep, hb_interval, A_wire, B_wire)``: the worker puts its
+    operands on the device, says hello, and on ``go`` computes worker
+    ``w``'s ordered chunk stream exactly like the thread runtime's
+    ``worker_fn``, sending each result over ``conn``, then ``done``.  A
+    ``("stop",)`` -- during a job, between two chunks or in a straggler's
+    sleep, or after it -- ends the job, and the worker answers ``("idle",
+    w)``.  A daemon heartbeat thread shares ``conn`` under a lock and beats
+    from hello to the job's end: beats prove the *process* is scheduled,
+    independent of chunk progress.  The first hello carries the worker's
+    start-up: seconds from ``t_spawn`` (the master's ``time.time()`` at the
+    spawn) to this function, to open the device, to put its operands
+    there; a later one the operands' seconds alone.
     """
     t_entry = time.time()
     send_lock = threading.Lock()
-    stop_hb = threading.Event()
+    stop_hb = threading.Event()  # the running job's beats
+    w = None
 
     def _send(msg) -> bool:
         try:
@@ -296,38 +306,162 @@ def _worker_main(worker, inbox, conn, device, t_spawn, row_chunks, n,
         except (BrokenPipeError, OSError, ValueError):
             return False  # master went away: nothing left to report to
 
-    def _beat():
-        while not stop_hb.wait(hb_interval):
-            if not _send(("hb", worker)):
+    def _beat(stop, w, interval):
+        while not stop.wait(interval):
+            if not _send(("hb", w)):
                 return
+
+    def _stopped(timeout: float = 0.0) -> bool:
+        """Whether ``("stop",)`` came within ``timeout`` seconds (taken)."""
+        if inbox.poll(timeout):
+            inbox.recv()
+            return True
+        return False
 
     try:
         dev = _open_device(device)
-        t_device = time.time()
-        _, A_wire, B_wire = inbox.recv()
-        A_blocks, B_blocks = _operands_on(dev, A_wire, B_wire)
-        synchronize(dev)
-        _send(("hello", worker, os.getpid(), {
-            "entry_s": t_entry - t_spawn, "device_s": t_device - t_entry,
-            "operands_s": time.time() - t_device}))
-        threading.Thread(target=_beat, daemon=True).start()
-        inbox.recv()  # ("go",): the job's clock starts
-        for c in range(start_chunk, num_chunks):
-            if chunk_sleep:
-                time.sleep(chunk_sleep)
-            payload = _encode_chunk(row_chunks, c, num_chunks, A_blocks,
-                                    B_blocks, n, dev)
-            if not _send(("chunk", worker, c, payload)):
-                return
-        _send(("done", worker))
+        startup = {"entry_s": t_entry - t_spawn, "device_s": time.time() - t_entry}
+        while True:
+            msg = inbox.recv()
+            if msg[0] == "stop":  # no job under way
+                _send(("idle", None))
+                continue
+            (_, w, row_chunks, n, num_chunks, start_chunk, chunk_sleep,
+             hb_interval, A_wire, B_wire) = msg
+            t_job = time.time()
+            A_blocks, B_blocks = _operands_on(dev, A_wire, B_wire)
+            synchronize(dev)
+            _send(("hello", w, os.getpid(), {**startup, "operands_s": time.time() - t_job}))
+            startup = {}
+            stop_hb = threading.Event()
+            threading.Thread(target=_beat, args=(stop_hb, w, hb_interval), daemon=True).start()
+            stopped = inbox.recv()[0] == "stop"  # else ("go",): the job's clock starts
+            for c in range(start_chunk, num_chunks):
+                if stopped or _stopped(chunk_sleep):
+                    stopped = True
+                    break
+                payload = _encode_chunk(row_chunks, c, num_chunks, A_blocks,
+                                        B_blocks, n, dev)
+                if not _send(("chunk", w, c, payload)):
+                    return
+            if not stopped:
+                _send(("done", w))
+                stopped = _stopped(None)
+            stop_hb.set()
+            _send(("idle", w))
     except EOFError:
-        return  # master went away before the job started
+        return  # master went away
     except Exception as exc:  # the master ends the job with it (no CPU fallback)
-        _send(("error", worker, repr(exc)))
+        _send(("error", w, repr(exc)))
     finally:
         stop_hb.set()
         inbox.close()
         conn.close()
+
+
+def _start_worker(ctx, device: torch.device, name: str):
+    """One worker process (``_worker_main``) forked from the fork server:
+    the process, the read end of its pipe to the master, and its
+    ``_Outbox``."""
+    inbox_r, inbox_w = ctx.Pipe(duplex=False)
+    recv_end, send_end = ctx.Pipe(duplex=False)
+    proc = ctx.Process(target=_worker_main,
+                       args=(inbox_r, send_end, str(device), time.time()),
+                       daemon=True, name=name)
+    proc.start()
+    send_end.close()  # keep only the child's copy: EOF tracks its death
+    inbox_r.close()
+    return proc, recv_end, _Outbox(inbox_w, name=f"{name}-outbox")
+
+
+def _end_worker(proc, conn, outbox, deadline: float) -> None:
+    """Terminate a worker process (where it still runs), reap it by
+    ``deadline`` (``time.perf_counter()``; then SIGKILL) and close its
+    pipes."""
+    if proc.is_alive():
+        proc.terminate()
+    proc.join(timeout=max(0.1, deadline - time.perf_counter()))
+    if proc.is_alive():  # pragma: no cover - SIGKILL backstop
+        proc.kill()
+        proc.join(timeout=1.0)
+    outbox.close()
+    if conn is not None:
+        conn.close()
+
+
+class WorkerProcesses:
+    """Worker processes kept from one ``run_proc_job`` to the next
+    (``processes=``): each opens the device once, and ``ProcPool`` hands
+    process k worker k's part of every job, so a job after the first pays
+    no start-up but its operands' transfer.  Faults act on the processes
+    as in a pool of its own: a process a fault ended, or one that does not
+    answer ``stop`` within ``STOP_S`` once its job is over, is ended and
+    replaced by a fresh one when its slot is next used.  ``close`` (or the
+    ``with`` block's end) ends them all.
+
+    ``device``: None = the CUDA card, raising where there is none; or
+    ``"cpu"``.  Every job run on it must name the same device."""
+
+    #: seconds a process has to answer ``stop`` at the end of a job
+    STOP_S = 5.0
+
+    def __init__(self, device=None):
+        self.device = resolve_device(device)
+        self._ctx = _context()
+        self._idle: dict[int, tuple] = {}   # slot -> (proc, conn, outbox)
+        self._closed = False
+
+    def take(self, slot: int) -> tuple:
+        """Slot ``slot``'s process, ready for a job (a fresh one where it
+        has none): ``(proc, conn, outbox, fresh)``."""
+        if self._closed:
+            raise RuntimeError("WorkerProcesses is closed")
+        if slot in self._idle:
+            return (*self._idle.pop(slot), False)
+        return (*_start_worker(self._ctx, self.device, f"proc-worker-{slot}"), True)
+
+    def give_back(self, entries: dict) -> None:
+        """``{slot: (proc, conn, outbox)}`` at a job's end: each is sent
+        ``stop``; those that answer ``idle`` within ``STOP_S`` are kept for
+        the next job, the others ended."""
+        waiting = {}
+        for slot, (proc, conn, outbox) in entries.items():
+            if conn is None or not proc.is_alive():
+                _end_worker(proc, conn, outbox, time.perf_counter())
+                continue
+            outbox.put(("stop",))
+            waiting[conn] = (slot, proc, outbox)
+        deadline = time.perf_counter() + self.STOP_S
+        while waiting and time.perf_counter() < deadline:
+            for conn in mp_connection.wait(list(waiting), timeout=_POLL):
+                slot, proc, outbox = waiting[conn]
+                try:
+                    msg = conn.recv()
+                except (EOFError, OSError):
+                    msg = ("eof",)
+                if msg[0] == "idle":
+                    del waiting[conn]
+                    self._idle[slot] = (proc, conn, outbox)
+                elif msg[0] in ("eof", "error"):
+                    del waiting[conn]
+                    _end_worker(proc, conn, outbox, time.perf_counter() + 1.0)
+                # the job's late chunks, heartbeats and ``done``: dropped
+        for conn, (_, proc, outbox) in waiting.items():
+            _end_worker(proc, conn, outbox, time.perf_counter() + 1.0)
+
+    def close(self) -> None:
+        """End every process.  Idempotent."""
+        self._closed = True
+        deadline = time.perf_counter() + 5.0
+        for proc, conn, outbox in self._idle.values():
+            _end_worker(proc, conn, outbox, deadline)
+        self._idle.clear()
+
+    def __enter__(self) -> "WorkerProcesses":
+        return self
+
+    def __exit__(self, *exc) -> None:
+        self.close()
 
 
 # ------------------------------- master side --------------------------------
@@ -364,8 +498,12 @@ class ProcPool:
                  heartbeat_interval: float = 0.05,
                  heartbeat_deadline: float = 2.0,
                  respawn: bool = False,
-                 plan=None, device=None):
+                 plan=None, device=None, processes: WorkerProcesses | None = None):
         self.device = resolve_device(device)
+        if processes is not None and processes.device != self.device:
+            raise ValueError(f"the processes run on {processes.device}, the job on "
+                             f"{self.device}")
+        self._processes = processes
         self.code = code
         self.num_chunks = int(num_chunks)
         self.n = n
@@ -392,6 +530,7 @@ class ProcPool:
             self._operands[w] = _worker_operands(
                 A_wire, B_wire, [tasks_by_row[r] for r in rows], n)
         self._workers: dict[int, _WorkerState] = {}
+        self._retired: list[_WorkerState] = []   # respawned workers' dead predecessors
         self._t0: float | None = None   # the job's start: "go" sent
         #: start-up: seconds from spawn to "go", and each incarnation's
         #: hello in hello order: its worker, seconds from its spawn to its
@@ -423,49 +562,48 @@ class ProcPool:
         self.startup["go_s"] = self._t0 - t_spawn
         for st in self._workers.values():
             st.outbox.put(("go",))
-            st.outbox.close()
         return self._t0
 
     def _spawn(self, w: int, start_chunk: int, respawned: bool = False):
-        inbox_r, inbox_w = self._ctx.Pipe(duplex=False)
-        recv_end, send_end = self._ctx.Pipe(duplex=False)
+        """Worker ``w``'s process, sent its job: ``processes``'s process
+        for slot ``w`` where the pool has them, else (and for a respawn) a
+        fresh one."""
+        if self._processes is not None and not respawned:
+            proc, conn, outbox, _ = self._processes.take(w)
+        else:
+            proc, conn, outbox = _start_worker(self._ctx, self.device, f"proc-worker-{w}")
+        if w in self._workers:  # a respawn: its dead predecessor's pipes
+            self._retired.append(self._workers[w])
         chunk_sleep = self.straggler_sleep.get(w, 0.0) / self.num_chunks
-        proc = self._ctx.Process(
-            target=_worker_main,
-            args=(w, inbox_r, send_end, str(self.device), time.time(),
-                  self._row_chunks[w], self.n, self.num_chunks, start_chunk,
-                  chunk_sleep, self.hb_interval),
-            daemon=True, name=f"proc-worker-{w}")
-        proc.start()
-        send_end.close()  # keep only the child's copy: EOF tracks its death
-        inbox_r.close()
-        outbox = _Outbox(inbox_w, name=f"proc-outbox-{w}")
-        outbox.put(("operands", *self._operands[w]))
+        outbox.put(("job", w, self._row_chunks[w], self.n, self.num_chunks, start_chunk,
+                    chunk_sleep, self.hb_interval, *self._operands[w]))
         now = time.perf_counter()
         self._workers[w] = _WorkerState(
-            proc=proc, conn=recv_end, outbox=outbox, spawned_at=now,
+            proc=proc, conn=conn, outbox=outbox, spawned_at=now,
             last_seen=now, next_chunk=start_chunk, respawned=respawned)
         if self._t0 is not None:  # a respawn: the job is under way
             outbox.put(("go",))
-            outbox.close()
 
     def shutdown(self) -> None:
-        """Injector off, every child unfrozen/terminated/reaped, pipes
-        closed.  Idempotent; safe after partial startup."""
+        """Injector off, every child unfrozen; then each process given back
+        to ``processes`` (which keeps those that stop) or, without it,
+        terminated and reaped; pipes closed.  Idempotent; safe after
+        partial startup."""
         self.injector.shutdown()
-        for st in self._workers.values():
+        workers, self._workers = self._workers, {}
+        retired, self._retired = self._retired, []
+        deadline = time.perf_counter() + 5.0
+        for st in retired:
+            _end_worker(st.proc, st.conn, st.outbox, deadline)
+        if self._processes is not None:
+            self._processes.give_back({w: (st.proc, st.conn, st.outbox)
+                                       for w, st in workers.items()})
+            return
+        for st in workers.values():
             if st.proc.is_alive():
                 st.proc.terminate()
-        deadline = time.perf_counter() + 5.0
-        for st in self._workers.values():
-            st.proc.join(timeout=max(0.1, deadline - time.perf_counter()))
-            if st.proc.is_alive():  # pragma: no cover - SIGKILL backstop
-                st.proc.kill()
-                st.proc.join(timeout=1.0)
-            st.outbox.close()
-            if st.conn is not None:
-                st.conn.close()
-                st.conn = None
+        for st in workers.values():
+            _end_worker(st.proc, st.conn, st.outbox, deadline)
 
     # ----------------------------- event source ---------------------------
 
@@ -906,6 +1044,7 @@ def run_proc_job(
     heartbeat_deadline: float = 2.0,
     respawn: bool = False,
     device=None,
+    processes: WorkerProcesses | None = None,
 ) -> ExecutionReport:
     """``run_live_job`` with real OS subprocesses and (optionally) real
     faults.
@@ -924,7 +1063,10 @@ def run_proc_job(
                   next in-order chunk;
     ``device``    None = the CUDA card, raising where there is none; or
                   ``"cpu"``: where every worker process computes and the
-                  master decodes.
+                  master decodes;
+    ``processes`` a ``WorkerProcesses`` whose processes serve the job and
+                  stay for the next one (None: processes of the job's own,
+                  ended with it).
 
     The compute time counts from ``go`` (every worker started) to the
     decodable prefix; start-up is in ``decode_stats["startup"]``.  The
@@ -944,7 +1086,7 @@ def run_proc_job(
         straggler_sleep=straggler_sleep,
         heartbeat_interval=heartbeat_interval,
         heartbeat_deadline=heartbeat_deadline,
-        respawn=respawn, plan=plan, device=device)
+        respawn=respawn, plan=plan, device=device, processes=processes)
     try:
         t0 = pool.start(timeout)
         state = _consume_events(chunked, pool.events(timeout))

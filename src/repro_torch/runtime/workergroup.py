@@ -27,13 +27,16 @@ sender's memory.
 
 A launch has one wall limit, which is also the group's timeout: past it
 the launcher kills every rank, waits for them, and raises.  No rank
-outlives its launch.
+outlives its launch.  ``group_of_one`` makes the calling process the one
+rank of a group of its own.
 """
 
 from __future__ import annotations
 
+import contextlib
 import dataclasses
 import datetime
+import math
 import os
 import socket
 import tempfile
@@ -104,14 +107,19 @@ def _free_port() -> int:
         return s.getsockname()[1]
 
 
-def _rank_main(fn, rank, world_size, backend, init_method, device, timeout, args, conn):
-    """A rank's process: join the group, run ``fn(device, *args)``, send
-    ``("ok", rank, result)`` or ``("error", rank, traceback)``."""
+def _rank_main(fn, rank, world_size, backend, init_method, device, timeout, args, mesh,
+               conn):
+    """A rank's process: join the group, run ``fn(device, *args)`` (or
+    ``fn(device, device_mesh, *args)`` with a ``mesh``), send ``("ok", rank,
+    result)`` or ``("error", rank, traceback)``."""
     import torch.distributed as dist
 
     try:
         dev = init_worker_group(rank, world_size, backend=backend, init_method=init_method,
                                 device=device, timeout=timeout)
+        if mesh is not None:
+            from repro_torch.launch.mesh import device_mesh
+            args = (device_mesh(mesh, dev),) + tuple(args)
         out = fn(dev, *args)
         dist.barrier()  # rank 0 holds the group's store: nobody leaves early
         dist.destroy_process_group()
@@ -120,6 +128,26 @@ def _rank_main(fn, rank, world_size, backend, init_method, device, timeout, args
         conn.send(("error", rank, traceback.format_exc()))
     finally:
         conn.close()
+
+
+@contextlib.contextmanager
+def group_of_one(*, backend: str, device=None, mesh: dict | None = None):
+    """This process as the one rank of a group of its own: a world of one
+    needs no rank process.  Yields its device, and its ``DeviceMesh`` with
+    ``mesh`` (every axis of size 1; else None).  The group is destroyed on
+    leaving the block."""
+    import torch.distributed as dist
+
+    dev = init_worker_group(0, 1, backend=backend, device=device,
+                            init_method=f"tcp://127.0.0.1:{_free_port()}")
+    try:
+        if mesh is None:
+            yield dev, None
+        else:
+            from repro_torch.launch.mesh import device_mesh
+            yield dev, device_mesh(mesh, dev)
+    finally:
+        dist.destroy_process_group()
 
 
 def _reap(procs, grace: float = 5.0) -> None:
@@ -136,9 +164,11 @@ def _reap(procs, grace: float = 5.0) -> None:
 
 
 def spawn_group(fn, world_size: int, *, backend: str, device=None, timeout: float = 300.0,
-                args: tuple = ()) -> list:
+                args: tuple = (), mesh: dict | None = None) -> list:
     """Run ``fn(device, *args)`` in ``world_size`` ranks of one process group
-    and return their results in rank order.
+    and return their results in rank order.  With ``mesh`` (axis sizes
+    whose product is ``world_size``, ``launch.mesh``), each rank gets its
+    group's ``DeviceMesh`` too: ``fn(device, device_mesh, *args)``.
 
     ``fn`` is a module-level function (it is pickled by name).  ``device``
     is as in ``rank_device``; it is resolved here first, so a launch with
@@ -150,6 +180,8 @@ def spawn_group(fn, world_size: int, *, backend: str, device=None, timeout: floa
 
     if world_size < 1:
         raise ValueError(f"world_size must be >= 1, got {world_size}")
+    if mesh is not None and math.prod(mesh.values()) != world_size:
+        raise ValueError(f"mesh {mesh} does not have {world_size} devices")
     dev = rank_device(0, world_size, backend, device)
     ctx = _context()
     init_method = f"tcp://127.0.0.1:{_free_port()}"
@@ -161,7 +193,8 @@ def spawn_group(fn, world_size: int, *, backend: str, device=None, timeout: floa
             proc = ctx.Process(
                 target=_rank_main,
                 args=(fn, rank, world_size, backend, init_method,
-                      None if backend == "nccl" else str(dev), timeout, args, send_end),
+                      None if backend == "nccl" else str(dev), timeout, args, mesh,
+                      send_end),
                 daemon=True, name=f"group-rank-{rank}")
             proc.start()
             send_end.close()  # keep only the child's copy: EOF tracks its end

@@ -20,6 +20,13 @@ header ``descr '<V2'``, which plain numpy reads back as ``|V2`` words.
 The port reads those words into ``torch.bfloat16`` and writes its own
 bf16 leaves the same way, so an npz it writes is the reference's byte for
 byte.
+
+On a mesh (the parameters and the state as DTensors) every rank gathers
+each leaf's full value (``full_tensor``, a collective) and rank 0 writes
+the same files; a restore reads the files on every rank and distributes
+each leaf as its template is placed.  So a checkpoint written on a mesh
+restores in one process, on a mesh of another shape, and in the JAX
+package.
 """
 
 from __future__ import annotations
@@ -50,6 +57,22 @@ BF16_DESCR = "<V2"
 
 # ----------------------------- plain checkpoints -----------------------------
 
+def _full(t: torch.Tensor) -> torch.Tensor:
+    """A DTensor's whole value (every rank must call this: it gathers),
+    else ``t``."""
+    from torch.distributed.tensor import DTensor
+
+    return t.full_tensor() if isinstance(t, DTensor) else t
+
+
+def _writer() -> bool:
+    """Whether this process writes: rank 0 of a process group, or a lone
+    process."""
+    import torch.distributed as dist
+
+    return not dist.is_initialized() or dist.get_rank() == 0
+
+
 def _savez(path: pathlib.Path, leaves: list) -> None:
     """``np.savez(path, *leaves)`` for tensors: the same stored zip of
     ``arr_i.npy`` members, a bf16 leaf as its words under ``BF16_DESCR``."""
@@ -74,22 +97,37 @@ def _tensor(a: np.ndarray, device) -> torch.Tensor:
     return torch.from_numpy(a).to(device)
 
 
+def _like(a: np.ndarray, t: torch.Tensor) -> torch.Tensor:
+    """A loaded leaf on the device of ``t``, placed as ``t`` where it is a
+    DTensor (each rank keeps its shard of the full value)."""
+    from torch.distributed.tensor import DTensor, distribute_tensor
+
+    if isinstance(t, DTensor):
+        return distribute_tensor(_tensor(a, t.device), t.device_mesh, t.placements)
+    return _tensor(a, t.device)
+
+
 def _loadz(path: pathlib.Path, template) -> dict:
     """The npz's ``arr_i`` as a tree like ``template``, each leaf on the
-    device of the template's leaf at its place."""
+    device of the template's leaf at its place, and placed as it is."""
     with np.load(path) as z:
         arrays = [z[f"arr_{i}"] for i in range(len(z.files))]
     where = tree_leaves(template)
     if len(arrays) != len(where):
         raise ValueError(f"{path} holds {len(arrays)} leaves, the template {len(where)}")
-    return tree_unflatten(template, [_tensor(a, t.device) for a, t in zip(arrays, where)])
+    return tree_unflatten(template, [_like(a, t) for a, t in zip(arrays, where)])
 
 
 def save_checkpoint(directory, step: int, params: dict, opt_state: dict | None = None,
                     extra: dict | None = None) -> pathlib.Path:
     """Atomic versioned save: write the step's directory, then flip the
-    manifest."""
+    manifest.  On a mesh every rank calls it (each leaf is gathered) and
+    rank 0 writes."""
+    params = tree_map(_full, params)
+    opt_state = None if opt_state is None else tree_map(_full, opt_state)
     directory = pathlib.Path(directory)
+    if not _writer():
+        return directory / f"step_{step:08d}"
     step_dir = directory / f"step_{step:08d}"
     step_dir.mkdir(parents=True, exist_ok=True)
     _savez(step_dir / "params.npz", tree_leaves(params))
@@ -113,7 +151,8 @@ def latest_step(directory) -> int | None:
 def restore_checkpoint(directory, params_template: dict, opt_template: dict | None = None,
                        step: int | None = None):
     """(params[, opt_state], step) from ``step`` (None: the latest), each
-    leaf in the dtype it was saved in, on its template leaf's device."""
+    leaf in the dtype it was saved in, on its template leaf's device and
+    in its placements."""
     directory = pathlib.Path(directory)
     step = latest_step(directory) if step is None else step
     if step is None:
@@ -127,7 +166,9 @@ def restore_checkpoint(directory, params_template: dict, opt_template: dict | No
 
 class AsyncCheckpointer:
     """Saves on a background thread (training never blocks on storage);
-    ``wait()`` before exit."""
+    ``wait()`` before exit.  On a mesh every rank calls ``save``: the host
+    snapshot gathers each leaf on the caller's thread, and only rank 0
+    hands it to a thread that writes."""
 
     def __init__(self, directory):
         self.directory = pathlib.Path(directory)
@@ -135,10 +176,12 @@ class AsyncCheckpointer:
 
     def save(self, step: int, params: dict, opt_state: dict | None = None, extra=None):
         def snap(tree):  # a host copy on the caller's thread: the step updates in place
-            return tree_map(lambda t: t.detach().to("cpu", copy=True), tree)
+            return tree_map(lambda t: _full(t.detach()).to("cpu", copy=True), tree)
 
         params = snap(params)
         opt_state = snap(opt_state) if opt_state else None
+        if not _writer():
+            return
         self.wait()
         self._thread = threading.Thread(
             target=save_checkpoint,
@@ -166,12 +209,16 @@ def save_coded_checkpoint(directory, step: int, params: dict, *, m: int = 4, n: 
     """Erasure-code the parameters across ``num_targets`` storage targets,
     one coded chunk a file; any full-rank subset of the targets restores
     them.  The encode runs on ``device`` (None: the CUDA card, raising
-    where there is none).  Returns the manifest (also written to disk)."""
+    where there is none).  Returns the manifest (also written to disk).
+    On a mesh every rank calls it (the leaves are gathered) and rank 0
+    encodes and writes the full values; the others return None."""
     device = resolve_device(device)
+    leaves = [_full(t) for t in tree_leaves(params)]
+    if not _writer():
+        return None
     directory = pathlib.Path(directory)
     cdir = directory / f"coded_{step:08d}"
     cdir.mkdir(parents=True, exist_ok=True)
-    leaves = tree_leaves(params)
     flat = torch.cat([t.detach().reshape(-1).to(device, torch.float32) for t in leaves])
     d = m * n
     pad = (-flat.numel()) % d

@@ -6,7 +6,10 @@ The stream is a fixed-seed Zipf-ish token process: cheap, with no I/O,
 and treated exactly like a real corpus reader.  ``frames`` / ``vision``
 are stub embeddings for the encdec and vlm families.  ``input_specs``
 gives the dry run the same inputs as meta tensors (shapes and dtypes, no
-storage).
+storage).  On a mesh every rank makes the same batch and
+``distribute_batch`` places it replicated; the model's ``maybe_shard("dp",
+...)`` then keeps each rank's rows, as the reference's unplaced batch
+input amounts to.
 """
 
 from __future__ import annotations
@@ -48,6 +51,17 @@ class SyntheticCorpus:
             out["vision"] = rng.standard_normal(
                 (self.batch, cfg.vision_tokens, cfg.d_model)).astype(self.dtype) * 0.02
         return out
+
+
+def distribute_batch(batch: dict, mesh, device) -> dict:
+    """The batch's arrays as tensors on ``device``, replicated over the
+    ``DeviceMesh`` ``mesh`` (None: plain tensors)."""
+    out = {k: torch.as_tensor(v, device=device) for k, v in batch.items()}
+    if mesh is None:
+        return out
+    from torch.distributed.tensor import Replicate, distribute_tensor
+
+    return {k: distribute_tensor(t, mesh, [Replicate()] * mesh.ndim) for k, t in out.items()}
 
 
 def input_specs(cfg, batch: int, seq: int, dtype="bfloat16", kind: str = "train") -> dict:

@@ -11,6 +11,12 @@ place, a piece of at most ``PIECE`` elements at a time, which is how the
 train step keeps its peak memory near four times the parameters (the
 reference donates its buffers instead): a piece's temporaries, not a
 stacked leaf's (internlm2-1.8b's ``w_gate`` is 403 M floats).
+
+Under a ``DeviceMesh`` the parameters, gradients, m and v are DTensors in
+the same placements (``train_step``): ``update_`` runs on each rank's own
+shards, elementwise, with no collective, and ``global_norm`` sums each
+shard once over the mesh.  ``count`` is a plain tensor on every rank,
+replicated, as in the reference's optimizer-state shardings.
 """
 
 from __future__ import annotations
@@ -26,6 +32,13 @@ from repro_torch.training.tree import tree_leaves, tree_map, tree_unflatten
 
 #: elements of a leaf that ``AdamW.update_`` updates at a time
 PIECE = 1 << 24
+
+
+def _local(t: torch.Tensor) -> torch.Tensor:
+    """A DTensor's own shard (a view this rank updates in place), else ``t``."""
+    from torch.distributed.tensor import DTensor
+
+    return t.to_local() if isinstance(t, DTensor) else t
 
 
 def _pieces(t: torch.Tensor):
@@ -90,7 +103,8 @@ class AdamW:
         for leaves in zip(tree_leaves(grads) if isinstance(grads, dict) else grads,
                           tree_leaves(state["m"]), tree_leaves(state["v"]),
                           tree_leaves(params), strict=True):
-            for g, m, v, p in zip(*map(_pieces, leaves), strict=True):
+            local = [_local(t) for t in leaves]
+            for g, m, v, p in zip(*map(_pieces, local), strict=True):
                 u, m_new, v_new = self._leaf(g, m, v, p, *scalars)
                 p.add_(u)
                 m.copy_(m_new)
@@ -103,9 +117,30 @@ def apply_updates(params: dict, updates: dict) -> dict:
 
 def global_norm(tree) -> torch.Tensor:
     """sqrt of the sum of every leaf's f32 sum of squares; ``tree``: a
-    nested dict or a list of leaves."""
+    nested dict or a list of leaves.  Over DTensor leaves the sum is a
+    partial one a rank (each shard counted on the one rank of its replicas
+    at coordinate 0 of every dim it is replicated over), then one
+    all-reduce over the mesh's group: a plain tensor, the same on every
+    rank."""
+    from torch.distributed.tensor import DTensor
+
     leaves = tree_leaves(tree) if isinstance(tree, dict) else tree
-    return torch.sqrt(torch.stack([x.float().square().sum() for x in leaves]).sum())
+    meshes = {x.device_mesh for x in leaves if isinstance(x, DTensor)}
+    if not meshes:
+        return torch.sqrt(torch.stack([x.float().square().sum() for x in leaves]).sum())
+    import torch.distributed as dist
+
+    (mesh,) = meshes
+
+    def part(x):
+        own = x.to_local().float().square().sum()
+        first = all(mesh.get_local_rank(i) == 0
+                    for i, q in enumerate(x.placements) if q.is_replicate())
+        return own if first else torch.zeros_like(own)
+
+    total = torch.stack([part(x) for x in leaves]).sum()
+    dist.all_reduce(total)
+    return torch.sqrt(total)
 
 
 def _clip_scale(gn: torch.Tensor, max_norm: float) -> torch.Tensor:
@@ -127,7 +162,7 @@ def clip_by_global_norm_(leaves: list, max_norm: float) -> torch.Tensor:
     gn = global_norm(leaves)
     scale = _clip_scale(gn, max_norm)
     for x in leaves:
-        x.mul_(scale.to(x.dtype))
+        _local(x).mul_(scale.to(x.dtype))
     return gn
 
 

@@ -1,6 +1,6 @@
 """The port's boundary: no JAX, no ``repro``, no hidden CPU carry-on.
 
-* every ``repro_torch`` module, ``chip_smoke``, ``chip_variants`` and the
+* every ``repro_torch`` module, ``chip_smoke``, ``chip_mesh``, ``chip_variants`` and the
   ``examples/*_torch.py`` import in a process where ``jax``, ``ml_dtypes``
   and ``repro`` cannot be imported at all;
 * no port file names them;
@@ -48,6 +48,7 @@ names = [m.name for m in pkgutil.walk_packages(repro_torch.__path__,
 for name in names:
     importlib.import_module(name)
 import chip_smoke
+import chip_mesh
 import chip_variants
 import importlib.util, pathlib
 for path in sorted(pathlib.Path(sys.argv[2], "examples").glob("*_torch.py")):
@@ -77,7 +78,7 @@ _FORBIDDEN = re.compile(
 @pytest.mark.parametrize("path", sorted(
     str(p.relative_to(ROOT)) for p in
     [*PORT.rglob("*.py"), *PORT.rglob("*.cu"), ROOT / "chip_smoke.py",
-     ROOT / "chip_variants.py", *EXAMPLES]))
+     ROOT / "chip_mesh.py", ROOT / "chip_variants.py", *EXAMPLES]))
 def test_port_sources_name_no_jax_and_no_repro(path):
     text = (ROOT / path).read_text()
     hits = [m.group(0) for m in _FORBIDDEN.finditer(text)]
@@ -217,17 +218,24 @@ def _training_calls(tmp):
                 "--batch", "1", "--seq", "8", "--ckpt-dir", str(tmp)]
         return train.main(argv + ([] if device is None else ["--device", device]))
 
+    def cli_mesh(device):
+        argv = ["--arch", cfg.name.removesuffix("-reduced"), "--reduced", "--steps", "1",
+                "--batch", "2", "--seq", "8", "--ckpt-dir", str(tmp / "mesh"), "--nproc", "2"]
+        return train.main(argv + ([] if device is None else ["--device", device]))
+
     shards = [np.arange(10, dtype=np.float32), np.ones(10, np.float32)]
     return {
         "launch.train.main": cli,
+        "launch.train.main --nproc 2": cli_mesh,
         "make_train_step": step,
         "save_coded_checkpoint": lambda d: save_coded_checkpoint(tmp, 1, params, device=d),
         "coded_aggregate": lambda d: coded_aggregate(shards, device=d),
     }
 
 
-@pytest.mark.parametrize("name", ["launch.train.main", "make_train_step",
-                                  "save_coded_checkpoint", "coded_aggregate"])
+@pytest.mark.parametrize("name", ["launch.train.main", "launch.train.main --nproc 2",
+                                  "make_train_step", "save_coded_checkpoint",
+                                  "coded_aggregate"])
 def test_training_entry_points_without_cuda_raise_unless_asked_for_the_cpu(name, tmp_path):
     if torch.cuda.is_available():
         pytest.skip("a CUDA device is present: the card is meant to be used")
@@ -388,4 +396,11 @@ def test_chip_smoke_fails_without_printing_a_result(tmp_path, alone):
     proc = subprocess.run([sys.executable, str(script)], capture_output=True,
                           text=True, timeout=120, cwd=cwd)
     assert proc.returncode != 0
+    assert '"ok"' not in proc.stdout
+
+
+def test_chip_mesh_exits_2_without_four_cards():
+    proc = subprocess.run([sys.executable, str(ROOT / "chip_mesh.py")], capture_output=True,
+                          text=True, timeout=120, cwd=ROOT)
+    assert proc.returncode == 2 and "needs 4 CUDA cards" in proc.stderr
     assert '"ok"' not in proc.stdout

@@ -1,0 +1,482 @@
+"""The device mesh: the port's sharded train path against the JAX package's.
+
+One subprocess (8 host devices) runs the reference under ``jax.jit`` on its
+meshes and writes an ``.npz``: the reduced internlm2-1.8b's loss and
+gradients on {data 2, model 2} with and without ``opt_seq_parallel`` and
+with ``opt_fused_ce``, three steps of ``launch/train.py``'s sharded step
+(in and out shardings from ``Model.specs()``), the reduced qwen3-moe on
+(2, 2) in its global, coded, dp-local and shard_map-combine forms and on
+(2, 4) as ``spmd_moe_combine_check.py`` runs it, internlm2 on (2, 4)
+(its 2 K/V heads do not divide among 4 model shards: replicated), each
+parameter's ``NamedSharding.shard_shape``, and the reference's
+initial parameters.
+
+Two gloo groups on ``device="cpu"`` (``runtime.workergroup.spawn_group``,
+one launch each, session fixtures) run the port on those parameters
+(``models.convert.params_from_numpy``, then ``meshctx.distribute``): 4
+ranks on {data 2, model 2}, 8 on {data 2, model 4}.  Held:
+
+* loss and every gradient against the reference on the same mesh and
+  against the one-process port: RTOL = 1e-5 of the loss, GRAD_RTOL =
+  1e-4 of each leaf's largest magnitude (f32 sums in other orders); the
+  bf16 combine and the fused cross entropy's bf16 backward to the
+  reference's own limits for them (2e-3 and 5e-2, and 2^-7);
+* each rank's local shard shape of every parameter == the reference's;
+* the cross entropy over a vocab that the TP degree does not divide
+  against one process;
+* the sharded train step's losses and grad norms over 3 steps;
+* a checkpoint written on the mesh restores in one process to the
+  gathered parameters, bit for bit, and a coded one (rank 0 encodes the
+  gathered values) from two thirds of its targets;
+* ``maybe_shard``, ``distribute_batch`` and ``global_norm`` with no
+  ``DeviceMesh``: the tensors themselves.
+"""
+
+from __future__ import annotations
+
+import json
+import os
+import pathlib
+import subprocess
+import sys
+
+import numpy as np
+import pytest
+
+torch = pytest.importorskip("torch")
+
+import repro_torch.configs as tcfg  # noqa: E402
+from repro_torch.launch import meshctx  # noqa: E402
+from repro_torch.models import build as tbuild  # noqa: E402
+from repro_torch.models.convert import params_from_numpy  # noqa: E402
+from repro_torch.runtime import workergroup  # noqa: E402
+from repro_torch.training import checkpoint as tckpt  # noqa: E402
+from repro_torch.training.data import SyntheticCorpus, distribute_batch  # noqa: E402
+from repro_torch.training.optimizer import global_norm  # noqa: E402
+from repro_torch.training.train_step import value_and_grad  # noqa: E402
+from repro_torch.training.tree import tree_leaves, tree_unflatten  # noqa: E402
+
+ROOT = pathlib.Path(__file__).resolve().parents[1]
+RTOL = 1e-5
+GRAD_RTOL = 1e-4
+COMBINE_RTOL, COMBINE_GRAD_RTOL = 2e-3, 5e-2    # spmd_moe_combine_check.py's bf16 sum
+FUSED_RTOL = 2.0 ** -7                          # test_torch_training.py's bf16 backward
+B, S = 4, 16
+TRAIN_STEPS = 3
+LAUNCH_TIMEOUT_S = 240.0
+ARCHS = ("internlm2-1.8b", "qwen3-moe-30b-a3b")
+MOE = "qwen3-moe-30b-a3b"
+
+# name -> (arch, opts, mesh (data, model))
+CASES = {
+    "lm": ("internlm2-1.8b", (), (2, 2)),
+    "lm_sp": ("internlm2-1.8b", ("seq_parallel",), (2, 2)),
+    "lm_fused": ("internlm2-1.8b", ("fused_ce",), (2, 2)),
+    "lm_tp4": ("internlm2-1.8b", (), (2, 4)),
+    "moe_global": (MOE, (), (2, 2)),
+    "moe_coded": (MOE, ("coded_moe",), (2, 2)),
+    "moe_local": (MOE, ("moe_local_dispatch",), (2, 2)),
+    "moe_shardmap": (MOE, ("moe_local_dispatch", "moe_shardmap_combine"), (2, 2)),
+    "moe_local_tp4": (MOE, ("moe_local_dispatch",), (2, 4)),
+    "moe_shardmap_tp4": (MOE, ("moe_local_dispatch", "moe_shardmap_combine"), (2, 4)),
+}
+BF16_COMBINE = {"moe_shardmap", "moe_shardmap_tp4"}
+
+
+def _limits(name: str) -> tuple[float, float]:
+    if name in BF16_COMBINE:
+        return COMBINE_RTOL, COMBINE_GRAD_RTOL
+    if "fused_ce" in CASES[name][1]:
+        return RTOL, FUSED_RTOL
+    return RTOL, GRAD_RTOL
+
+
+_JAX_SCRIPT = r"""
+import json, os, sys
+os.environ["XLA_FLAGS"] = "--xla_force_host_platform_device_count=8"
+import jax
+import jax.numpy as jnp
+import numpy as np
+from jax.sharding import NamedSharding, PartitionSpec as P
+from repro import compat
+import repro.configs as configs
+from repro.launch import meshctx
+from repro.models import build
+from repro.training.data import SyntheticCorpus
+from repro.training.optimizer import AdamW, cosine_warmup_schedule
+from repro.training.train_step import make_train_step
+
+cases, archs, B, S, steps = json.loads(sys.argv[2])
+out = {}
+
+
+def mesh_of(shape):
+    return compat.make_mesh(tuple(shape), ("data", "model"),
+                            axis_types=compat.auto_axis_types(2))
+
+
+def put(prefix, tree):
+    for i, leaf in enumerate(jax.tree.leaves(tree)):
+        out[f"{prefix}/{i}"] = np.asarray(leaf)
+
+
+def batch_of(cfg, step):
+    return {k: jnp.asarray(v) for k, v in SyntheticCorpus(cfg, B, S, seed=0).make_batch(step).items()}
+
+
+mesh22 = mesh_of((2, 2))
+for arch in archs:
+    cfg = configs.get(arch).reduced()
+    model = build(cfg)
+    put(f"init/{arch}", model.init(jax.random.key(0), jnp.float32))
+    with meshctx.use_mesh(mesh22):
+        shapes = [NamedSharding(mesh22, meshctx.spec(*s)).shard_shape(tuple(p.shape))
+                  for s, p in zip(jax.tree.leaves(model.specs(), is_leaf=lambda x: isinstance(x, tuple)),
+                                  jax.tree.leaves(model.shapes()))]
+    out[f"shard_shapes/{arch}"] = np.asarray(json.dumps(shapes))
+
+for name, (arch, opts, shape) in cases.items():
+    cfg = configs.get(arch).reduced()
+    if opts:
+        cfg = cfg.with_opts(tuple(opts))
+    model = build(cfg)
+    params = model.init(jax.random.key(0), jnp.float32)
+    with meshctx.use_mesh(mesh_of(shape)):
+        loss, grads = jax.jit(jax.value_and_grad(model.loss))(params, batch_of(cfg, 0))
+    out[f"{name}/loss"] = np.asarray(loss)
+    put(f"{name}/grad", grads)
+
+# launch/train.py's sharded step, 3 steps on (2, 2)
+cfg = configs.get("internlm2-1.8b").reduced()
+model = build(cfg)
+opt = AdamW(lr=cosine_warmup_schedule(3e-4, 20, 100))
+step_fn = make_train_step(model, opt)
+with meshctx.use_mesh(mesh22):
+    pspecs = jax.tree.map(lambda s: NamedSharding(mesh22, meshctx.spec(*s)),
+                          model.specs(), is_leaf=lambda x: isinstance(x, tuple))
+    ospecs = {"m": pspecs, "v": pspecs, "count": NamedSharding(mesh22, P())}
+    step_fn = jax.jit(step_fn, in_shardings=(pspecs, ospecs, None),
+                      out_shardings=(pspecs, ospecs, None))
+    params = model.init(jax.random.key(0), jnp.float32)
+    state = opt.init(params)
+    for step in range(steps):
+        params, state, metrics = step_fn(params, state, batch_of(cfg, step))
+        out[f"train/loss/{step}"] = np.asarray(metrics["loss"])
+        out[f"train/grad_norm/{step}"] = np.asarray(metrics["grad_norm"])
+np.savez(sys.argv[1], **out)
+"""
+
+
+@pytest.fixture(scope="session")
+def reference(tmp_path_factory) -> dict:
+    path = tmp_path_factory.mktemp("mesh_ref") / "ref.npz"
+    env = dict(os.environ, PYTHONPATH=str(ROOT / "src"), JAX_PLATFORMS="cpu")
+    spec = json.dumps([{k: [a, list(o), list(m)] for k, (a, o, m) in CASES.items()},
+                       list(ARCHS), B, S, TRAIN_STEPS])
+    proc = subprocess.run([sys.executable, "-c", _JAX_SCRIPT, str(path), spec],
+                          env=env, capture_output=True, text=True, timeout=600)
+    assert proc.returncode == 0, proc.stderr[-4000:]
+    with np.load(path) as z:
+        return {k: z[k] for k in z.files}
+
+
+def _cfg(name: str):
+    arch, opts, _ = CASES[name]
+    cfg = tcfg.get(arch).reduced()
+    return cfg.with_opts(opts) if opts else cfg
+
+
+def _init(model, ref: dict, arch: str) -> dict:
+    """The reference's initial parameters as the port's, on the model's device."""
+    n = len(tree_leaves(model.shapes()))
+    arrays = [ref[f"init/{arch}/{i}"] for i in range(n)]
+    return params_from_numpy(model, tree_unflatten(model.shapes(), arrays))
+
+
+def _batch(cfg, step: int = 0) -> dict:
+    return SyntheticCorpus(cfg, B, S, seed=0).make_batch(step)
+
+
+# ------------------------------- in the ranks ---------------------------------
+
+# the cross entropy's head over a vocab that neither mesh's TP degree
+# divides (DTensor's shards: ceil(V / tp), the last shorter); labels in
+# every shard, at the shards' edges, and one unlabelled row
+UNEVEN_V, CE_T, CE_D = 509, 32, 24
+CE_LOSSES = ("fused", "chunked")
+
+
+def _ce_inputs():
+    rng = np.random.default_rng(7)
+    x = rng.standard_normal((CE_T, CE_D)).astype(np.float32)
+    w = (rng.standard_normal((CE_D, UNEVEN_V)) / np.sqrt(CE_D)).astype(np.float32)
+    labels = rng.integers(0, UNEVEN_V, CE_T)
+    labels[:8] = (UNEVEN_V - 1, UNEVEN_V - 2, 0, 127, 128, 254, 255, -1)
+    return {"x": torch.from_numpy(x), "w": torch.from_numpy(w),
+            "labels": torch.from_numpy(labels)}
+
+
+def _ce_loss_and_grads(kind: str, x, w, labels) -> list:
+    """The loss and its gradients in x and w, as numpy."""
+    from repro_torch.models.layers import cross_entropy_chunked, cross_entropy_fused
+
+    fn = cross_entropy_fused if kind == "fused" else cross_entropy_chunked
+    x, w = x.detach().requires_grad_(), w.detach().requires_grad_()
+    with torch.enable_grad(), meshctx.replicate_plain():
+        loss = fn(x, w, labels)
+        gx, gw = torch.autograd.grad(loss, (x, w))
+    return [_numpy(loss), _numpy(gx), _numpy(gw)]
+
+
+def _numpy(t) -> np.ndarray:
+    from torch.distributed.tensor import DTensor
+
+    t = t.full_tensor() if isinstance(t, DTensor) else t
+    return t.detach().float().cpu().numpy()
+
+
+def _mesh_rank(device, dmesh, ref: dict, names: list, train: bool, ckpt_dir: str):
+    """Loss and gradients of each case on this group's mesh, each
+    parameter's local shard shape, the sharded train step's metrics, and a
+    checkpoint written on the mesh.  Returns numpy only."""
+    from repro_torch.training.optimizer import AdamW, cosine_warmup_schedule
+    from repro_torch.training.train_step import make_train_step
+
+    out = {"shapes": {}, "cases": {}}
+    meshctx.set_mesh(dmesh)
+    for arch in ARCHS:
+        model = tbuild(tcfg.get(arch).reduced(), device)
+        params = meshctx.distribute(_init(model, ref, arch), model.specs(), dmesh)
+        out["shapes"][arch] = [tuple(p.to_local().shape) for p in tree_leaves(params)]
+    for name in names:
+        cfg = _cfg(name)
+        model = tbuild(cfg, device)
+        params = meshctx.distribute(_init(model, ref, CASES[name][0]), model.specs(), dmesh)
+        loss, grads = value_and_grad(model, params, distribute_batch(_batch(cfg), dmesh, device))
+        out["cases"][name] = (float(loss), [_numpy(g) for g in tree_leaves(grads)],
+                              [str(g.placements) == str(p.placements)
+                               for g, p in zip(tree_leaves(grads), tree_leaves(params))])
+    ce = meshctx.distribute(_ce_inputs(), {"x": ("dp", None), "w": (None, "model"),
+                                           "labels": ("dp",)}, dmesh)
+    out["uneven_vocab"] = {kind: _ce_loss_and_grads(kind, ce["x"], ce["w"], ce["labels"])
+                           for kind in CE_LOSSES}
+    if train:
+        cfg = _cfg("lm")
+        model = tbuild(cfg, device)
+        opt = AdamW(lr=cosine_warmup_schedule(3e-4, 20, 100))
+        step_fn = make_train_step(model, opt)
+        params = meshctx.distribute(_init(model, ref, "internlm2-1.8b"), model.specs(), dmesh)
+        state = opt.init(params)
+        metrics = []
+        for step in range(TRAIN_STEPS):
+            params, state, m = step_fn(params, state,
+                                       distribute_batch(_batch(cfg, step), dmesh, device))
+            metrics.append((float(m["loss"]), float(m["grad_norm"])))
+        out["train"] = metrics
+        tckpt.save_checkpoint(ckpt_dir, TRAIN_STEPS, params, state)
+        tckpt.save_coded_checkpoint(ckpt_dir, TRAIN_STEPS, params, device=device)
+        out["final"] = [_numpy(p) for p in tree_leaves(params)]
+        out["final_m"] = [_numpy(p) for p in tree_leaves(state["m"])]
+    return out
+
+
+def _launch(ref, mesh: dict, train: bool, ckpt_dir: str):
+    names = [n for n, (_, _, m) in CASES.items() if m == tuple(mesh.values())]
+    world = int(np.prod(list(mesh.values())))
+    outs = workergroup.spawn_group(_mesh_rank, world, backend="gloo", device="cpu",
+                                   timeout=LAUNCH_TIMEOUT_S, mesh=mesh,
+                                   args=(ref, names, train, ckpt_dir))
+    return outs
+
+
+@pytest.fixture(scope="session")
+def ranks22(reference, tmp_path_factory):
+    ckpt = tmp_path_factory.mktemp("mesh_ckpt")
+    return _launch(reference, {"data": 2, "model": 2}, True, str(ckpt)), ckpt
+
+
+@pytest.fixture(scope="session")
+def ranks24(reference, tmp_path_factory):
+    return _launch(reference, {"data": 2, "model": 4}, False, "")
+
+
+def _one_process(name: str, ref: dict):
+    """The one-process port on the case's inputs, under the case's mesh as
+    a dict (which sets only the dp-local dispatch's chunk count)."""
+    cfg = _cfg(name)
+    model = tbuild(cfg, "cpu")
+    data, tp = CASES[name][2]
+    with meshctx.use_mesh({"data": data, "model": tp}):
+        loss, grads = value_and_grad(model, _init(model, ref, CASES[name][0]), _batch(cfg))
+    return float(loss), [g.numpy() for g in tree_leaves(grads)]
+
+
+def _held(got, want, rtol: float, grad_rtol: float, what: str) -> None:
+    (gl, gg), (wl, wg) = got, want
+    assert abs(gl - wl) <= rtol * abs(wl), (what, gl, wl)
+    assert len(gg) == len(wg), what
+    for i, (a, b) in enumerate(zip(gg, wg)):
+        assert a.shape == b.shape, (what, i, a.shape, b.shape)
+        err = float(np.abs(a - b).max())
+        tol = grad_rtol * max(float(np.abs(b).max()), 1e-30)
+        assert err <= tol, f"{what} leaf {i} {a.shape}: max err {err:.3e} > {tol:.3e}"
+
+
+def _ranks(name, ranks22, ranks24):
+    return (ranks22[0] if CASES[name][2] == (2, 2) else ranks24)
+
+
+def _want(ref: dict, name: str):
+    n = len([k for k in ref if k.startswith(f"{name}/grad/")])
+    return float(ref[f"{name}/loss"]), [ref[f"{name}/grad/{i}"] for i in range(n)]
+
+
+# --------------------------------- tests --------------------------------------
+
+@pytest.mark.parametrize("name", list(CASES))
+def test_sharded_loss_and_grads_match_reference(name, reference, ranks22, ranks24):
+    """Every rank's loss and gathered gradients against the reference's on
+    the same mesh; each gradient comes back in its parameter's placements."""
+    rtol, grad_rtol = _limits(name)
+    for rank, out in enumerate(_ranks(name, ranks22, ranks24)):
+        loss, grads, placed = out["cases"][name]
+        assert all(placed), (name, rank, placed)
+        _held((loss, grads), _want(reference, name), rtol, grad_rtol, f"{name} rank {rank}")
+
+
+@pytest.mark.parametrize("name", list(CASES))
+def test_sharded_loss_and_grads_match_one_process(name, reference, ranks22, ranks24):
+    rtol, grad_rtol = _limits(name)
+    if name in BF16_COMBINE:  # one process sums the f32 contributions: no bf16 step
+        rtol, grad_rtol = COMBINE_RTOL, COMBINE_GRAD_RTOL
+    loss, grads, _ = _ranks(name, ranks22, ranks24)[0]["cases"][name]
+    _held((loss, grads), _one_process(name, reference), rtol, grad_rtol, name)
+
+
+@pytest.mark.parametrize("arch", ARCHS)
+def test_local_shard_shapes_match_named_sharding(arch, reference, ranks22):
+    want = [tuple(s) for s in json.loads(str(reference[f"shard_shapes/{arch}"]))]
+    for rank, out in enumerate(ranks22[0]):
+        assert out["shapes"][arch] == want, (arch, rank)
+
+
+def test_sharded_train_steps_match_reference(reference, ranks22):
+    for rank, out in enumerate(ranks22[0]):
+        for step, (loss, gn) in enumerate(out["train"]):
+            want_l = float(reference[f"train/loss/{step}"])
+            want_g = float(reference[f"train/grad_norm/{step}"])
+            assert abs(loss - want_l) <= RTOL * abs(want_l), (rank, step, loss, want_l)
+            assert abs(gn - want_g) <= RTOL * abs(want_g), (rank, step, gn, want_g)
+
+
+@pytest.mark.parametrize("kind", CE_LOSSES)
+@pytest.mark.parametrize("tp", [2, 4])
+def test_uneven_vocab_shards_match_one_process(kind, tp, ranks22, ranks24):
+    """The cross entropy with the head's vocab sharded unevenly over
+    "model" (509 columns: 255 + 254 on tp 2, 128 x 3 + 125 on tp 4): the
+    loss and the gradients in x and the head against one process (the fused
+    backward's bf16 products to their own limit)."""
+    want = _ce_loss_and_grads(kind, **_ce_inputs())
+    grad_rtol = FUSED_RTOL if kind == "fused" else GRAD_RTOL
+    for rank, out in enumerate(ranks22[0] if tp == 2 else ranks24):
+        loss, *grads = out["uneven_vocab"][kind]
+        _held((float(loss), grads), (float(want[0]), want[1:]), RTOL, grad_rtol,
+              f"{kind} tp {tp} rank {rank}")
+
+
+def test_mesh_checkpoint_restores_in_one_process(ranks22):
+    outs, ckpt = ranks22
+    model = tbuild(_cfg("lm"), "cpu")
+    template = model.init(0)
+    from repro_torch.training.optimizer import AdamW
+
+    params, state, step = tckpt.restore_checkpoint(ckpt, template, AdamW().init(template))
+    assert step == TRAIN_STEPS and int(state["count"]) == TRAIN_STEPS
+    for got, want in zip(tree_leaves(params), outs[0]["final"], strict=True):
+        np.testing.assert_array_equal(got.numpy(), want)
+    for got, want in zip(tree_leaves(state["m"]), outs[0]["final_m"], strict=True):
+        np.testing.assert_array_equal(got.numpy(), want)
+    # every rank gathered the same values
+    for out in outs[1:]:
+        for a, b in zip(out["final"], outs[0]["final"], strict=True):
+            np.testing.assert_array_equal(a, b)
+
+
+def test_mesh_coded_checkpoint_restores_in_one_process(ranks22):
+    """Rank 0 erasure-codes the gathered parameters; a third of the
+    targets lost, one process decodes them (float64 targets: exact but
+    for float64 rounding)."""
+    outs, ckpt = ranks22
+    template = tbuild(_cfg("lm"), "cpu").init(0)
+    params, _ = tckpt.restore_coded_checkpoint(ckpt, TRAIN_STEPS, template,
+                                               available=list(range(8, 24)), device="cpu")
+    for got, want in zip(tree_leaves(params), outs[0]["final"], strict=True):
+        np.testing.assert_allclose(got.numpy(), want, rtol=0, atol=1e-6)
+
+
+def test_no_device_mesh_is_the_identity():
+    x = torch.randn(4, 6)
+    assert meshctx.maybe_shard(x, "dp", "model") is x
+    with meshctx.use_mesh({"data": 2, "model": 2}):
+        assert meshctx.maybe_shard(x, "dp", "model") is x
+        assert meshctx.spec("dp", None, "model") == ("data", None, "model")
+        assert meshctx.device_mesh() is None
+    fn = lambda t: t  # noqa: E731
+    assert meshctx.local(fn, ((),), ((),)) is fn
+    batch = distribute_batch({"tokens": np.arange(6).reshape(2, 3)}, None, "cpu")
+    assert batch["tokens"].dtype == torch.int64 and not hasattr(batch["tokens"], "placements")
+    leaves = [torch.randn(3), torch.randn(2, 2)]
+    want = torch.sqrt(sum(t.square().sum() for t in leaves))
+    torch.testing.assert_close(global_norm(leaves), want)
+
+
+def test_placements_of_a_spec():
+    from torch.distributed.tensor import Replicate, Shard
+
+    class _Mesh:  # the one attribute ``placements`` reads
+        mesh_dim_names = ("pod", "data", "model")
+
+    assert meshctx.placements(("data", None, "model"), _Mesh()) == [
+        Replicate(), Shard(0), Shard(2)]
+    assert meshctx.placements((("pod", "data"), "model"), _Mesh()) == [
+        Shard(0), Shard(0), Shard(1)]
+    assert meshctx.placements((), _Mesh()) == [Replicate()] * 3
+    with pytest.raises(ValueError, match="shards two dims"):
+        meshctx.placements(("model", "model"), _Mesh())
+
+
+def test_device_mesh_needs_a_group_of_its_size():
+    from repro_torch.launch.mesh import device_mesh
+
+    with pytest.raises(RuntimeError, match="initialized process group"):
+        device_mesh({"data": 2, "model": 2}, "cpu")
+    with pytest.raises(ValueError, match="does not have 3 devices"):
+        workergroup.spawn_group(_mesh_rank, 3, backend="gloo", device="cpu",
+                                mesh={"data": 2, "model": 2})
+
+
+def test_moe_dp_chunks_follow_the_reference():
+    from repro_torch.models.moe import _dp_chunks
+
+    assert _dp_chunks(64) == 1
+    for mesh, T, want in (({"data": 2, "model": 2}, 64, 2), ({"data": 4, "model": 2}, 6, 2),
+                          ({"pod": 2, "data": 4, "model": 2}, 64, 8),
+                          ({"pod": 2, "data": 4, "model": 2}, 12, 4),
+                          ({"data": 4, "model": 1}, 7, 1)):
+        with meshctx.use_mesh(mesh):
+            assert _dp_chunks(T) == want, (mesh, T)
+
+
+def test_one_process_paths_unchanged_by_a_dict_mesh():
+    """A dict mesh (the dry run's) changes no value of the global dispatch
+    or the dense model: nothing is placed."""
+    for name in ("lm", "moe_global"):
+        cfg = _cfg(name)
+        model = tbuild(cfg, "cpu")
+        params = model.init(0)
+        plain = value_and_grad(model, params, _batch(cfg))
+        with meshctx.use_mesh({"data": 2, "model": 2}):
+            under = value_and_grad(model, params, _batch(cfg))
+        assert torch.equal(plain[0], under[0])
+        for a, b in zip(tree_leaves(plain[1]), tree_leaves(under[1])):
+            assert torch.equal(a, b)

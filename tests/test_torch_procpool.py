@@ -325,15 +325,16 @@ def test_worker_paused_right_after_sending_cannot_hang_the_master():
     inbox_r, inbox_w = ctx.Pipe(duplex=False)
     recv_end, send_end = ctx.Pipe(duplex=False)
     proc = ctx.Process(target=procpool._worker_main, daemon=True, args=(
-        0, inbox_r, send_end, "cpu", time.time(), {r: tasks[r].chunks(2) for r in rows},
-        N_SPLIT, 2, 0, 0.0, 3600.0))  # no heartbeat in the test's window
+        inbox_r, send_end, "cpu", time.time()))
     proc.start()
     send_end.close()
     inbox_r.close()
     got = {}
     try:
-        inbox_w.send(("operands", *procpool._worker_operands(
-            A_wire, B_wire, [tasks[r] for r in rows], N_SPLIT)))
+        inbox_w.send(("job", 0, {r: tasks[r].chunks(2) for r in rows}, N_SPLIT, 2, 0, 0.0,
+                      3600.0,  # no heartbeat in the test's window
+                      *procpool._worker_operands(A_wire, B_wire, [tasks[r] for r in rows],
+                                                 N_SPLIT)))
         assert recv_end.poll(120), "the worker never said hello"
         assert recv_end.recv()[0] == "hello"
         inbox_w.send(("go",))
@@ -567,3 +568,85 @@ def test_program_that_ran_pools_leaves_no_process_behind(tmp_path):
             left.append(pid)
     assert proc.returncode == 0, err.decode()[-2000:]
     assert left == []
+
+
+# ----------------------------- kept processes -------------------------------
+
+#: the jobs one ``WorkerProcesses`` serves in turn, in chip_smoke's order:
+#: a clean run, each fault class, a respawn and a kill at spawn (uncoded)
+KEPT_JOBS = ("no fault", *MATRIX, "respawn", "kill at spawn")
+#: the workers whose hello came from a fresh process (one that opened the
+#: device for that job), job by job: every worker at first; then those
+#: whose process the previous job's fault ended, and the respawned one
+KEPT_FRESH = {"no fault": list(range(8)), "kill": [], "pause_past_deadline": [1],
+              "slow10x": [], "drop_result": [], "respawn": [1]}
+
+
+@pytest.fixture(scope="module")
+def kept():
+    """Every job of KEPT_JOBS over one ``WorkerProcesses`` on the CPU, in
+    turn: each job's (report, A, B) or its ``DecodingError``; and the
+    processes kept at the end, once they are closed."""
+    coded = schemes.sparse_code(M_SPLIT, N_SPLIT, N=8, seed=4)
+    uncoded = schemes.uncoded(M_SPLIT, N_SPLIT)
+    out = {}
+    with procpool.WorkerProcesses("cpu") as procs:
+        for name in KEPT_JOBS:
+            if name in MATRIX:
+                fault = MATRIX[name]()
+                args, kw = (coded, [fault]), {"faulted": fault.worker}
+            elif name == "no fault":
+                args, kw = (coded, None), {}
+            else:
+                args, kw = (uncoded, [kill(1)]), {"sleep": 0.4, "respawn": name == "respawn"}
+            try:
+                out[name] = _run(*args, processes=procs, **kw)
+            except DecodingError as exc:
+                out[name] = exc
+        left = [proc for proc, _, _ in procs._idle.values()]
+    return out, left
+
+
+@pytest.mark.parametrize("name", [n for n in KEPT_JOBS if n != "kill at spawn"])
+def test_kept_processes_decode_each_job(name, kept):
+    """Each job on the processes the jobs before it used: the exact
+    product, its fault in the ledger, and hellos from reused processes but
+    where a fault ended the previous one."""
+    rep, A, B = kept[0][name]
+    _assert_product(rep.blocks, A, B)
+    kinds = [e["kind"] for e in rep.fault_ledger]
+    if name in MATRIX:
+        fault = MATRIX[name]()
+        assert any(e["kind"] == fault.kind and e["worker"] == fault.worker
+                   for e in rep.fault_ledger), rep.fault_ledger
+    elif name == "respawn":
+        assert kinds == ["kill", "crash_detected", "respawn"]
+        assert rep.fault_ledger[1]["exitcode"] == -signal.SIGKILL
+    else:
+        assert kinds == []
+    hello = rep.decode_stats["startup"]["hello"]
+    assert sorted(h["worker"] for h in hello if "device_s" in h) == KEPT_FRESH[name]
+    assert all(h["operands_s"] >= 0 for h in hello)
+
+
+def test_kept_processes_kill_at_spawn_names_worker(kept):
+    err = kept[0]["kill at spawn"]
+    assert isinstance(err, DecodingError), err
+    assert "worker process(es) [1] crashed" in str(err)
+
+
+def test_kept_processes_end_with_close(kept):
+    """Seven processes were kept to the end: the eight slots' but worker
+    1's, which the last job killed at spawn.  ``close`` ended them."""
+    _, left = kept
+    assert len(left) == 7
+    assert not any(proc.is_alive() for proc in left)
+
+
+def test_kept_processes_refuse_another_device():
+    with procpool.WorkerProcesses("cpu") as procs:
+        procs.device = torch.device("cuda", 0)  # as a card's processes would be
+        A, B = _data()
+        with pytest.raises(ValueError, match="the processes run on"):
+            procpool.ProcPool(schemes.uncoded(1, 1), 1, split_blocks(A, 1),
+                              split_blocks(B, 1), 1, device="cpu", processes=procs)
