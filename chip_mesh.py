@@ -22,15 +22,40 @@ line a part, each checked:
 4. ``moe``: qwen3-moe-30b-a3b at full width, 4 of 48 layers (the serving
    phase's depth), batch 2 x 256, in the MoE forms of chip_smoke.py's
    ``mesh`` phase, each timed and held as there.
+5. ``families``: rwkv6-3b, llama-3.2-vision-11b and whisper-medium at
+   full width, cut to one layer group (whisper: one decoder and one
+   encoder layer), and jamba-1.5-large-398b as chip_smoke.py's
+   ``families`` phase runs it -- its Mamba mixer alone at full width, the
+   whole model at reduced().  Each: a train step at batch 4 x 256, its
+   loss within 1e-5 relative and every gathered gradient within 1e-4 of
+   its leaf's largest against the one-process port on card 0; a prefill
+   of 4 x 128 and 8 greedy decode tokens with the cache placed (f32), the
+   tokens equal to one process's and the logits within 1e-4 of
+   max|logit|; the step's seconds, the prefill's ms, a decode step's ms
+   on each rank and each card's peak memory.
+6. ``dryrun``: internlm2-1.8b's train cell at the ``lm`` part's size (4 x
+   512, full depth) and one decode cell a family at ``families``' sizes
+   (4 sequences, a cache of 136), each dry-run on a fake {data 2, model 2}
+   mesh in a host process of its own (beside the ranks) and run on the
+   four cards on arguments made there in the shards' shapes: the
+   collectives' counts and bytes, kind by kind, equal to what rank 0
+   issues (backward included); the arguments' bytes within 0.5% + 1 MiB
+   of each rank's allocator; the peak estimate printed beside each rank's
+   ``max_memory_allocated``.
 
-The last line is ``{"ok": true, ...}``.  The rank-side measurements are
-``chip_smoke``'s (``mesh_lm``, ``mesh_forms``).
+``bandwidth`` also prints the roofline's ``collective_s`` for each
+measured size (``launch.mesh.ICI_BW``, NVLink 4's data sheet rate) beside
+the measured time.  ``python3 chip_mesh.py [part ...]`` runs those parts
+only (default: all).  The last line is ``{"ok": true, ...}``.  The
+rank-side measurements are ``chip_smoke``'s (``mesh_lm``, ``mesh_forms``,
+``mesh_decode``).
 """
 
 from __future__ import annotations
 
 import dataclasses
 import json
+import os
 import pathlib
 import statistics
 import subprocess
@@ -39,6 +64,8 @@ import tempfile
 import time
 
 import torch
+
+from chip_smoke import _cli_losses, emit
 
 ROOT = pathlib.Path(__file__).resolve().parent
 CARDS = 4
@@ -51,6 +78,23 @@ MOE_ARCH, MOE_LAYERS, MOE_BATCH, MOE_SEQ = "qwen3-moe-30b-a3b", 4, 2, 256
 RESTART_CLI = ["--arch", "internlm2-1.8b", "--layers", "1", "--steps", "12", "--batch", "2",
                "--seq", "256", "--ckpt-every", "5", "--opt-dtype", "bfloat16"]
 RESTART_FAIL, RESTART_ATOL = 8, 2e-4
+PARTS = ("bandwidth", "lm", "restart", "moe", "families", "dryrun")
+# families: each cut to one layer group (whisper also to one encoder layer)
+FAMILIES = {"rwkv6-3b": {}, "llama-3.2-vision-11b": {}, "whisper-medium": {"encoder_layers": 1}}
+FAM_JAMBA = "jamba-1.5-large-398b"
+FAM_BATCH, FAM_SEQ = 4, 256
+DEC_BATCH, DEC_PROMPT, DEC_NEW = 4, 128, 8
+FAM_LOSS_RTOL, FAM_GRAD_RTOL, FAM_LOGIT_RTOL = 1e-5, 1e-4, 1e-4
+FAM_TIMEOUT_S = 1500.0  # five models, each one process on card 0 then sharded
+# dryrun: name -> (arch, cell shape, config change: "reduced" or fields)
+DRY_CELLS = {
+    "lm_train": ("internlm2-1.8b", dict(seq=LM_SEQ, batch=LM_BATCH, kind="train"), {}),
+    **{f"{arch}_decode": (arch, dict(seq=DEC_PROMPT + DEC_NEW, batch=DEC_BATCH, kind="decode"),
+                          {"group": True, **kw}) for arch, kw in FAMILIES.items()},
+    "jamba_decode": (FAM_JAMBA, dict(seq=DEC_PROMPT + DEC_NEW, batch=DEC_BATCH, kind="decode"),
+                     "reduced")}
+# the arguments on the card against the dry run's arithmetic, as chip_smoke.py's launch
+DRY_ARG_RTOL, DRY_ARG_SLACK = 5e-3, 1 << 20
 
 
 def check(ok: bool, what: str) -> None:
@@ -64,9 +108,160 @@ def _smi() -> list[str]:
     return out.stdout.strip().splitlines()
 
 
+def _dry_cfg(arch: str, change):
+    """A ``DRY_CELLS`` config: "reduced", or the arch cut to one layer group
+    (``group``) with the other fields replaced."""
+    import repro_torch.configs as configs
+
+    cfg = configs.get(arch)
+    if change == "reduced":
+        return cfg.reduced()
+    change = dict(change)
+    if change.pop("group", False):
+        change["num_layers"] = cfg.group_size
+    return dataclasses.replace(cfg, **change)
+
+
+def _family_cfg(arch: str):
+    return _dry_cfg(arch, {"group": True, **FAMILIES[arch]})
+
+
+class _MambaBlock:
+    """The Mamba mixer alone as a model for ``value_and_grad``: loss = the
+    mean square of its output over ``{"p": its parameters, "x": its
+    input}`` (a positive sum, so its relative error is well conditioned)."""
+
+    def __init__(self, cfg):
+        self.cfg = cfg
+
+    def loss(self, params, batch):
+        from repro_torch.models.ssm import mamba_apply
+
+        out, _ = mamba_apply(params["x"], params["p"], self.cfg)
+        return out.square().mean()
+
+
+def _block_vs_one(dev, dmesh, block, params: dict, specs: dict, batch: dict) -> dict:
+    """``block``'s loss and every gathered gradient on the mesh against one
+    process on rank 0's card, and the sharded call's seconds."""
+    from chip_smoke import _leaf_errs, _synced_s
+    from repro_torch.launch import meshctx
+    from repro_torch.training.data import distribute_batch
+    from repro_torch.training.train_step import value_and_grad
+    from repro_torch.training.tree import tree_leaves
+
+    rank0 = dmesh.get_rank() == 0
+    want = None
+    if rank0:
+        loss1, g1 = value_and_grad(block, params, distribute_batch(batch, None, dev))
+        want = (float(loss1), tree_leaves(g1))
+    with meshctx.use_mesh(dmesh):
+        sharded = meshctx.distribute(params, specs, dmesh)
+        placed = distribute_batch(batch, dmesh, dev)
+        (loss, g), seconds = _synced_s(lambda: value_and_grad(block, sharded, placed), dev)
+        errs = []
+        for i, leaf in enumerate(tree_leaves(g)):
+            full = leaf.full_tensor()
+            if rank0:
+                errs.extend(_leaf_errs([full], [want[1][i]]))
+    out = {"loss": float(loss), "fwd_bwd_s": seconds}
+    if rank0:
+        out.update(loss_rel_err=abs(float(loss) - want[0]) / abs(want[0]),
+                   grad_rel_err=max(errs))
+    return out
+
+
+def _families_rank(dev: torch.device, dmesh) -> dict:
+    """Each family's train step and cached decode on the mesh against one
+    process, and jamba's Mamba mixer at full width."""
+    import repro_torch.configs as configs
+    from chip_smoke import SEED, mesh_decode, mesh_lm
+    from repro_torch.models import ssm
+    from repro_torch.models.layers import tree_init, tree_specs
+
+    out = {}
+    cfgs = {arch: _family_cfg(arch) for arch in FAMILIES}
+    cfgs[f"{FAM_JAMBA} reduced()"] = configs.get(FAM_JAMBA).reduced()
+    for name, cfg in cfgs.items():
+        out[name] = {"train": mesh_lm(dev, dmesh, cfg, FAM_BATCH, FAM_SEQ, 1, grads=True)}
+        torch.cuda.empty_cache()
+        out[name]["decode"] = mesh_decode(dev, dmesh, cfg, DEC_BATCH, DEC_PROMPT, DEC_NEW)
+        torch.cuda.empty_cache()
+    cfg = configs.get(FAM_JAMBA)
+    gen = torch.Generator(device=dev).manual_seed(SEED)
+    params = {"p": tree_init(ssm.mamba_defs(cfg), gen, torch.float32, dev),
+              "x": torch.randn(FAM_BATCH, FAM_SEQ, cfg.d_model, generator=gen, device=dev)}
+    specs = {"p": tree_specs(ssm.mamba_defs(cfg)), "x": ("dp", None, None)}
+    torch.cuda.reset_peak_memory_stats(dev)
+    out[f"{FAM_JAMBA} mamba mixer"] = {
+        "train": _block_vs_one(dev, dmesh, _MambaBlock(cfg), params, specs, {}),
+        "max_memory_allocated": torch.cuda.max_memory_allocated(dev)}
+    return out
+
+
+_FAKE_CELL = """
+import json, sys
+sys.path.insert(0, "src")
+import chip_mesh
+from repro_torch.launch import dryrun
+name = sys.argv[1]
+arch, info, change = chip_mesh.DRY_CELLS[name]
+dryrun.SHAPES[name] = info
+rec = dryrun.run_cell(arch, name, False, cfg_override=chip_mesh._dry_cfg(arch, change),
+                      mesh=chip_mesh.MESH, probes=False)
+print(json.dumps(rec))
+"""
+
+
+def _dry_rank(dev: torch.device, dmesh) -> dict:
+    """Each ``DRY_CELLS`` cell's step run on the cards: its arguments made
+    in the shards' shapes (the allocator's growth), then the step under the
+    collective capture, with its peak and seconds."""
+    from repro_torch.launch import dryrun, meshctx
+
+    out = {}
+    for name, (arch, info, change) in DRY_CELLS.items():
+        dryrun.SHAPES[name] = info
+        cfg = _dry_cfg(arch, change)
+        with meshctx.use_mesh(MESH):
+            step, args, specs, kinds = dryrun.build_cell(cfg, name, MESH, device=dev)
+        kind_of = {id(t): k for tree, k in zip(args, kinds) for t in dryrun._leaves(tree)}
+        gen = torch.Generator(device=dev).manual_seed(7)
+
+        def make(shape, leaf, _path):
+            t = torch.zeros(shape, dtype=leaf.dtype, device=dev)
+            if kind_of.get(id(leaf)) == "params":
+                t.normal_(0.0, 0.02, generator=gen)
+            elif kind_of.get(id(leaf)) == "batch":
+                t.random_(0, cfg.vocab_size, generator=gen)
+            return t
+
+        torch.cuda.synchronize(dev)
+        torch.cuda.empty_cache()
+        base = torch.cuda.memory_allocated(dev)
+        with meshctx.use_mesh(dmesh):
+            placed = dryrun.place(args, specs, dmesh, make=make)
+            torch.cuda.synchronize(dev)
+            grown = torch.cuda.memory_allocated(dev) - base
+            torch.cuda.reset_peak_memory_stats(dev)  # the peak from here holds the arguments
+            t0 = time.perf_counter()
+            with meshctx.Collectives() as coll:
+                res = step(*placed)
+            torch.cuda.synchronize(dev)
+            seconds = time.perf_counter() - t0
+        out[name] = {"card_argument_bytes": grown, "collectives": coll.summary(),
+                     "card_peak_bytes": torch.cuda.max_memory_allocated(dev) - base,
+                     "step_s": seconds}
+        del placed, res
+        torch.cuda.empty_cache()
+    return out
+
+
 def _bandwidth_rank(dev: torch.device, dmesh) -> dict:
     """Each collective's median seconds at each size on the world group."""
     import torch.distributed as dist
+
+    from repro_torch.launch.mesh import ICI_BW
 
     n = dist.get_world_size()
     out = {}
@@ -94,9 +289,14 @@ def _bandwidth_rank(dev: torch.device, dmesh) -> dict:
                     times.append(time.perf_counter() - t0)
             t = statistics.median(times)
             factor = 2 * (n - 1) / n if op == "all_reduce" else (n - 1) / n
+            # the roofline's term for the same collective: its output bytes,
+            # an all-reduce's twice, over NVLink's data sheet rate
+            priced = (2 if op == "all_reduce" else 1) * size / ICI_BW
             out[f"{op}/{size >> 20}MiB"] = {"bytes": size, "median_s": t,
                                             "algbw_GBps": size / t / 1e9,
-                                            "busbw_GBps": size / t / 1e9 * factor}
+                                            "busbw_GBps": size / t / 1e9 * factor,
+                                            "roofline_collective_s": priced,
+                                            "ici_bw_GBps": ICI_BW / 1e9}
             del buf
     return out
 
@@ -127,31 +327,7 @@ def _cli(ckpt: str, *extra: str) -> tuple[int, str, float]:
     return _train_cli(torch.device("cuda"), ckpt, *extra, base=RESTART_CLI, timeout=TIMEOUT_S)
 
 
-def main() -> int:
-    if not torch.cuda.is_available() or torch.cuda.device_count() < CARDS:
-        n = torch.cuda.device_count() if torch.cuda.is_available() else 0
-        print(f"chip_mesh: needs {CARDS} CUDA cards, found {n}", file=sys.stderr)
-        return 2
-    sys.path.insert(0, str(ROOT / "src"))
-    from chip_smoke import _cli_losses, emit
-    from repro_torch.runtime.procpool import stop_fork_server
-    from repro_torch.runtime.workergroup import spawn_group
-
-    smi = _smi()
-    for line in smi:
-        print(line, flush=True)
-    seconds = {}
-
-    def group(fn, mesh=MESH):
-        t0 = time.perf_counter()
-        out = spawn_group(fn, CARDS, backend="nccl", timeout=TIMEOUT_S, mesh=mesh)
-        seconds[fn.__name__] = time.perf_counter() - t0
-        return out
-
-    bw = group(_bandwidth_rank)
-    emit(part="bandwidth", cards=CARDS, backend="nccl", repeats=BW_REPEATS, nvidia_smi=smi,
-         rank0=bw[0], slowest_rank_s={k: max(r[k]["median_s"] for r in bw) for k in bw[0]})
-
+def _part_lm(group, smi) -> None:
     lm = group(_lm_rank)
     check(lm[0]["loss_rel_err"] <= 1e-5, f"lm: step-0 loss {lm[0]['loss']} vs one process "
                                          f"{lm[0]['one_process_loss']}")
@@ -161,6 +337,8 @@ def main() -> int:
          by_rank=[{k: r[k] for k in ("step_s", "tokens_per_s", "max_memory_allocated",
                                      "first_value_and_grad_s")} for r in lm])
 
+
+def _part_restart() -> None:
     with tempfile.TemporaryDirectory(prefix="mesh_restart_") as tmp:
         rc1, out1, s1 = _cli(tmp, "--nproc", "4", "--simulate-failure", str(RESTART_FAIL))
         check(rc1 == 17 and "[train] mesh {'data': 2, 'model': 2}" in out1,
@@ -177,15 +355,139 @@ def main() -> int:
     emit(part="restart", args=RESTART_CLI, fail_at=RESTART_FAIL, losses=got,
          one_process_losses=want, atol=RESTART_ATOL, seconds=[s1, s2, s3])
 
-    moe = group(_moe_rank)
-    for form, row in moe[0].items():
-        check(row["loss_rel_err"] <= row["rtol"] and row["grad_rel_err"] <= row["grad_rtol"],
-              f"moe {form}: {row}")
-    emit(part="moe", arch=MOE_ARCH, layers=MOE_LAYERS, batch=MOE_BATCH, seq=MOE_SEQ,
-         mesh=MESH, forms=moe[0], fwd_bwd_ms_by_rank={
-             form: [r[form]["fwd_bwd_ms"] for r in moe] for form in moe[0]})
+
+def _part_families(group, smi) -> None:
+    fam = group(_families_rank, timeout=FAM_TIMEOUT_S)
+    for name, row in fam[0].items():
+        tr = row["train"]
+        check(tr["loss_rel_err"] <= FAM_LOSS_RTOL and tr["grad_rel_err"] <= FAM_GRAD_RTOL,
+              f"families {name} train: {tr}")
+        if "decode" in row:
+            dec = row["decode"]
+            check(dec["tokens_equal"] and dec["logit_err"] <= FAM_LOGIT_RTOL,
+                  f"families {name} decode: {dec}")
+    for name in fam[0]:
+        by_rank = []
+        for r in fam:
+            row = r[name]
+            tr, dec = row["train"], row.get("decode", {})
+            by_rank.append({"step_s": tr.get("step_s", [tr.get("fwd_bwd_s")])[0],
+                            "prefill_ms": dec.get("prefill_ms"),
+                            "decode_ms_per_token": dec.get("decode_ms_per_token"),
+                            "max_memory_allocated": max(
+                                (x for x in (tr.get("max_memory_allocated"),
+                                             dec.get("max_memory_allocated"),
+                                             row.get("max_memory_allocated")) if x is not None),
+                                default=None)})
+        row0 = fam[0][name]
+        emit(part="families", model=name, mesh=MESH, train_batch=[FAM_BATCH, FAM_SEQ],
+             decode_sizes=[DEC_BATCH, DEC_PROMPT, DEC_NEW], nvidia_smi=smi,
+             loss_rtol=FAM_LOSS_RTOL, grad_rtol=FAM_GRAD_RTOL, logit_rtol=FAM_LOGIT_RTOL,
+             train={k: v for k, v in row0["train"].items() if k != "grad_rel_errs"},
+             decode=row0.get("decode"), by_rank=by_rank)
+
+
+def _part_dryrun(group, smi, seconds: dict) -> None:
+    """The fake mesh's dry runs, each a host process of its own, beside
+    the cards' run of the same cells."""
+    env = {**os.environ, "PYTHONPATH": str(ROOT / "src"), "CUDA_VISIBLE_DEVICES": ""}
+    t0 = time.perf_counter()
+    procs = {name: subprocess.Popen([sys.executable, "-c", _FAKE_CELL, name], cwd=ROOT,
+                                    env=env, stdout=subprocess.PIPE, stderr=subprocess.PIPE,
+                                    text=True)
+             for name in DRY_CELLS}
+    try:
+        real = group(_dry_rank)
+        fake = {}
+        for name, proc in procs.items():
+            out, err = proc.communicate(timeout=TIMEOUT_S)
+            check(proc.returncode == 0, f"dryrun {name}: the fake mesh's run failed: "
+                                        f"{err[-3000:]}")
+            fake[name] = json.loads(out.strip().splitlines()[-1])
+    finally:
+        for proc in procs.values():
+            if proc.poll() is None:
+                proc.kill()
+                proc.wait()
+    seconds["dryrun_fake_and_cards"] = time.perf_counter() - t0
+    for name, rec in fake.items():
+        ma = rec["memory_analysis"]
+        tol = DRY_ARG_RTOL * ma["argument_bytes"] + DRY_ARG_SLACK
+        for rank, r in enumerate(real):
+            check(abs(r[name]["card_argument_bytes"] - ma["argument_bytes"]) <= tol,
+                  f"dryrun {name} rank {rank}: arguments {r[name]['card_argument_bytes']} "
+                  f"bytes on the card, the dry run says {ma['argument_bytes']} (+- {tol})")
+        check(rec["collectives"] == real[0][name]["collectives"],
+              f"dryrun {name}: fake mesh {rec['collectives']} vs rank 0 on the cards "
+              f"{real[0][name]['collectives']}")
+        emit(part="dryrun", cell=name, arch=DRY_CELLS[name][0], shape=DRY_CELLS[name][1],
+             mesh=MESH, nvidia_smi=smi, collectives=rec["collectives"],
+             collectives_equal=True, meta_s=rec["meta_s"],
+             argument_bytes=ma["argument_bytes"], argument_tol=tol,
+             peak_bytes_est=ma["peak_bytes_est"], flops_per_device=rec["cost_analysis"][
+                 "flops_per_device"],
+             by_rank=[{"card_argument_bytes": r[name]["card_argument_bytes"],
+                       "card_peak_bytes": r[name]["card_peak_bytes"],
+                       "card_peak_over_est": r[name]["card_peak_bytes"] / ma["peak_bytes_est"],
+                       "step_s": r[name]["step_s"]} for r in real])
+
+
+def main() -> int:
+    if not torch.cuda.is_available() or torch.cuda.device_count() < CARDS:
+        n = torch.cuda.device_count() if torch.cuda.is_available() else 0
+        print(f"chip_mesh: needs {CARDS} CUDA cards, found {n}", file=sys.stderr)
+        return 2
+    sys.path.insert(0, str(ROOT / "src"))
+    from repro_torch.runtime.procpool import stop_fork_server
+    from repro_torch.runtime.workergroup import spawn_group
+
+    parts = sys.argv[1:] or list(PARTS)
+    unknown = set(parts) - set(PARTS)
+    if unknown:
+        print(f"chip_mesh: unknown parts {sorted(unknown)}; parts {PARTS}", file=sys.stderr)
+        return 2
+    smi = _smi()
+    for line in smi:
+        print(line, flush=True)
+    seconds = {}
+
+    def group(fn, mesh=MESH, timeout=TIMEOUT_S):
+        t0 = time.perf_counter()
+        out = spawn_group(fn, CARDS, backend="nccl", timeout=timeout, mesh=mesh)
+        seconds[fn.__name__] = time.perf_counter() - t0
+        return out
+
+    def part_bandwidth():
+        bw = group(_bandwidth_rank)
+        emit(part="bandwidth", cards=CARDS, backend="nccl", repeats=BW_REPEATS, nvidia_smi=smi,
+             rank0=bw[0], slowest_rank_s={k: max(r[k]["median_s"] for r in bw) for k in bw[0]})
+
+    def part_moe():
+        moe = group(_moe_rank)
+        for form, row in moe[0].items():
+            check(row["loss_rel_err"] <= row["rtol"] and row["grad_rel_err"] <= row["grad_rtol"],
+                  f"moe {form}: {row}")
+        emit(part="moe", arch=MOE_ARCH, layers=MOE_LAYERS, batch=MOE_BATCH, seq=MOE_SEQ,
+             mesh=MESH, forms=moe[0], fwd_bwd_ms_by_rank={
+                 form: [r[form]["fwd_bwd_ms"] for r in moe] for form in moe[0]})
+
+    run = {"bandwidth": part_bandwidth, "lm": lambda: _part_lm(group, smi),
+           "restart": _part_restart, "moe": part_moe,
+           "families": lambda: _part_families(group, smi),
+           "dryrun": lambda: _part_dryrun(group, smi, seconds)}
+    failed = {}
+    for part in PARTS:  # a failed part fails the script, after the others have run
+        if part in parts:
+            try:
+                run[part]()
+            except (SystemExit, Exception) as e:  # noqa: BLE001 -- reported, and fails below
+                failed[part] = f"{type(e).__name__}: {e}"
+                print(e, file=sys.stderr, flush=True)
     stop_fork_server()
     emit(part="seconds", **seconds)
+    if failed:
+        print(f"chip_mesh: FAILED parts {sorted(failed)}", file=sys.stderr)
+        return 1
     print(json.dumps({"ok": True, "device": {"platform": "gpu",
                                              "kind": torch.cuda.get_device_name(0),
                                              "count": torch.cuda.device_count()}}), flush=True)

@@ -2625,17 +2625,18 @@ def group_job_inputs(full: dict) -> dict:
 
 
 def phase_group_job(inputs: dict, smi: str) -> dict:
-    """``run_group_job`` at the main path's full width: 8 rank processes of a
+    """``run_group_jobs`` at the main path's full width: 8 rank processes of a
     gloo group on the card, rank k launching the fused-decode kernel over
     worker k's tiles and the ranks combining by one collective, in three
     configurations (replicated all alive, replicated with the main path's
-    dead worker, out_sharded all alive).  Each: C within GROUP_RTOL of the
+    dead worker, out_sharded all alive), all in one launch of the ranks
+    (one start-up, the operands shared once).  Each: C within GROUP_RTOL of the
     one-process apply's and within E2E_RTOL of the dense product, one
     fused-decode launch a rank an apply (each rank's own count), and a line
     with every rank's kernel, collective and apply times, the card's memory
     at its peak across the ranks' contexts and the card's name and power
     limit.  Returns the ranks' launches, summed."""
-    from repro_torch.runtime import run_group_job
+    from repro_torch.runtime import run_group_jobs
 
     ref, scale = inputs["ref_C"], float(inputs["ref_C"].abs().max())
     configs = (("replicated, all alive", False, None, "alive"),
@@ -2643,14 +2644,15 @@ def phase_group_job(inputs: dict, smi: str) -> dict:
                ("out_sharded, all alive", True, None, "alive"))
     total = {}
     applies = 1 + GROUP_REPEATS  # the warm-up and the timed repeats
-    for name, sharded, mask, one_key in configs:
-        mem = {}
-        t0 = time.perf_counter()
-        with _card_memory_watch(mem):
-            rep = run_group_job(inputs["A"], inputs["B"], inputs["plan"], backend=GROUP_BACKEND,
-                                out_sharded=sharded, survivors=mask, repeats=GROUP_REPEATS,
-                                a_sparse=inputs["ell"], timeout=GROUP_TIMEOUT_S)
-        wall_s = time.perf_counter() - t0
+    mem = {}
+    t0 = time.perf_counter()
+    with _card_memory_watch(mem):  # the three configurations in one launch of the ranks
+        reports = run_group_jobs(inputs["A"], inputs["B"], inputs["plan"], backend=GROUP_BACKEND,
+                                 configs=[(sharded, mask) for _, sharded, mask, _ in configs],
+                                 repeats=GROUP_REPEATS, a_sparse=inputs["ell"],
+                                 timeout=GROUP_TIMEOUT_S)
+    wall_s = time.perf_counter() - t0
+    for (name, sharded, mask, one_key), rep in zip(configs, reports, strict=True):
         (C,) = rep.blocks
         check(tuple(C.shape) == (R, T) and C.device.type == "cuda",
               f"group_job {name}: C {tuple(C.shape)} on {C.device}")
@@ -2673,7 +2675,8 @@ def phase_group_job(inputs: dict, smi: str) -> dict:
                 total[k] = total.get(k, 0) + v
         emit(phase="group_job", config=name, ranks=stats["group"], backend=stats["backend"],
              collective_path=stats["collective_path"], out_sharded=sharded,
-             repeats=GROUP_REPEATS, wall_s=wall_s, apply_ms_slowest_rank=rep.total_time * 1e3,
+             repeats=GROUP_REPEATS, launch_wall_s=wall_s, configs_a_launch=len(configs),
+             apply_ms_slowest_rank=rep.total_time * 1e3,
              rel_err_vs_one_process=vs_one, rtol_one_process=GROUP_RTOL,
              rel_err_vs_dense=vs_dense, rtol=E2E_RTOL, card_peak_bytes=mem["peak_bytes"],
              nvidia_smi=smi,
@@ -2699,7 +2702,8 @@ def phase_group_job(inputs: dict, smi: str) -> dict:
 # top 8; one layer's parameters, no embedding) on 2 x 256 tokens, forward
 # and backward: the dp-local dispatch against the one-process port, with
 # the shard_map combine against it, and the coded expert FFN (global
-# dispatch) against the one-process port; (c) ``mesh_cli``: the CLI at
+# dispatch) against the one-process port; (d) a cached decode with its
+# cache placed (MESH_DEC_ARCH below); (c) ``mesh_cli``: the CLI at
 # --reduced through a simulated failure and its resume on the mesh, against
 # a one-process run of the same steps made in this process.
 MESH_SHAPE, MESH_BACKEND, MESH_TIMEOUT_S = {"data": 1, "model": 1}, "nccl", 300.0
@@ -2717,6 +2721,12 @@ MESH_MOE_FORMS = {"local": ("moe_local_dispatch",),
 MESH_CLI = ["--arch", "internlm2-1.8b", "--reduced", "--steps", "12", "--batch", "2",
             "--seq", "32", "--ckpt-every", "5"]
 MESH_CLI_FAIL, MESH_CLI_ATOL = 8, 2e-4  # the printed losses carry 4 decimals
+# (d) whisper-medium at full width (d 1024, 16 heads, the odd vocab of
+# 51,865, 1500 frames), 1 decoder and 1 encoder layer: a prefill and 8
+# greedy decode tokens with the cache placed (f32), against one process:
+# the tokens equal, the logits within MESH_DEC_RTOL of max|logit|
+MESH_DEC_ARCH, MESH_DEC_BATCH, MESH_DEC_PROMPT, MESH_DEC_NEW = "whisper-medium", 2, 64, 8
+MESH_DEC_RTOL = 1e-4
 _MESH_LOSS_LINE = re.compile(r"\[train\] step +(\d+) loss +([0-9.]+)")
 
 
@@ -2731,16 +2741,35 @@ def _synced_s(fn, dev: torch.device):
     return out, time.perf_counter() - t0
 
 
-def _leaf_errs(got: list, want: list) -> list[float]:
-    """Each leaf's max|got - want| over its max|want|; ``got`` may hold
-    DTensors, gathered one at a time (every rank calls this)."""
+def _leaf_errs(got: list, want: list, zero: list | None = None) -> list[float]:
+    """Each leaf's max|got - want| over its max|want| (a leaf flagged in
+    ``zero``, a gradient that is 0 in exact arithmetic, over the largest
+    of ``want``); ``got`` may hold DTensors, gathered one at a time (every
+    rank calls this)."""
     from torch.distributed.tensor import DTensor
 
+    largest = max(float(w.float().abs().max()) for w in want)
     out = []
-    for g, w in zip(got, want, strict=True):
+    for i, (g, w) in enumerate(zip(got, want, strict=True)):
         g = g.full_tensor() if isinstance(g, DTensor) else g
-        out.append(float((g.float() - w.float()).abs().max())
-                   / max(float(w.float().abs().max()), 1e-30))
+        scale = largest if zero and zero[i] else max(float(w.float().abs().max()), 1e-30)
+        out.append(float((g.float() - w.float()).abs().max()) / scale)
+    return out
+
+
+def _key_biases(tree: dict) -> list[bool]:
+    """Which leaves of a parameter tree, in ``tree_leaves`` order, are a key
+    bias: its gradient is 0 in exact arithmetic (the softmax ignores a
+    shift shared by every key), so it is held to the tree's largest."""
+    out = []
+
+    def walk(t, key):
+        if isinstance(t, dict):
+            for k in sorted(t):
+                walk(t[k], k)
+        else:
+            out.append(key == "bk")
+    walk(tree, None)
     return out
 
 
@@ -2774,7 +2803,8 @@ def mesh_lm(dev: torch.device, dmesh, cfg, batch: int, seq: int, steps: int,
         del params
         (loss, g), first_s = _synced_s(lambda: value_and_grad(
             model, sharded, distribute_batch(corpus.make_batch(0), dmesh, dev)), dev)
-        errs = _leaf_errs(tree_leaves(g), one[1]) if grads and rank0 else None
+        errs = (_leaf_errs(tree_leaves(g), one[1], _key_biases(sharded)) if grads and rank0
+                else None)
         if grads and not rank0:
             for leaf in tree_leaves(g):
                 leaf.full_tensor()  # the gathers are collective
@@ -2890,8 +2920,75 @@ def mesh_moe_block(dev: torch.device, dmesh, cfg, batch: int, seq: int) -> dict:
                       params, specs, cot)
 
 
+def _greedy_on_mesh(model, params, inputs: dict, new: int, dev) -> dict:
+    """A prefill of ``inputs`` (tokens and the memory) on an f32 cache, then
+    ``new`` greedy decode steps: every step's tokens and last logits
+    (gathered on every rank), the prefill's ms and a decode step's median
+    ms (each step synchronised)."""
+    from repro_torch.serving.serve_step import make_prefill_step
+
+    def full(t):
+        return t.full_tensor() if hasattr(t, "full_tensor") else t
+
+    max_seq = inputs["tokens"].shape[1] + new
+    with torch.no_grad():
+        (logits, cache), prefill_s = _synced_s(
+            lambda: make_prefill_step(model, max_seq, torch.float32)(params, inputs), dev)
+        toks, outs, steps = [], [], []
+        for i in range(new + 1):
+            tok = torch.argmax(logits[:, -1], dim=-1).to(torch.int32)[:, None]
+            toks.append(full(tok).cpu())
+            outs.append(full(logits[:, -1]).float().cpu())
+            if i < new:
+                (logits, cache), s = _synced_s(lambda: model.decode_step(params, cache, tok),
+                                               dev)
+                steps.append(s)
+        del cache
+    return {"tokens": torch.cat(toks, 1), "logits": torch.stack(outs, 1),
+            "prefill_ms": prefill_s * 1e3, "decode_ms_per_token": statistics.median(steps) * 1e3}
+
+
+def mesh_decode(dev: torch.device, dmesh, cfg, batch: int, prompt: int, new: int) -> dict:
+    """A family's prefill of ``batch`` x ``prompt`` tokens (with its stub
+    memory) and ``new`` greedy decode steps on the mesh, the parameters
+    placed by ``Model.specs()`` and the cache by ``Model.cache_specs``,
+    against one process on rank 0's card: the tokens equal, the logits'
+    max error over max|logit|, the times on this rank and its card's
+    peak memory."""
+    from repro_torch.launch import meshctx
+    from repro_torch.models import build
+    from repro_torch.training.data import SyntheticCorpus, distribute_batch
+
+    model = build(cfg, dev)
+    params = model.init(SEED)
+    data = SyntheticCorpus(cfg, batch, prompt, seed=SEED).make_batch(0)
+    data.pop("labels")
+    rank0 = dmesh.get_rank() == 0
+    one = _greedy_on_mesh(model, params, distribute_batch(data, None, dev), new, dev) \
+        if rank0 else None
+    if dev.type == "cuda":
+        torch.cuda.empty_cache()
+        torch.cuda.reset_peak_memory_stats(dev)
+    with meshctx.use_mesh(dmesh):
+        sharded = meshctx.distribute(params, model.specs(), dmesh)
+        del params
+        got = _greedy_on_mesh(model, sharded, distribute_batch(data, dmesh, dev), new, dev)
+    out = {"batch": batch, "prompt": prompt, "new_tokens": new, "cache_dtype": "float32",
+           "prefill_ms": got["prefill_ms"], "decode_ms_per_token": got["decode_ms_per_token"],
+           "max_memory_allocated": (torch.cuda.max_memory_allocated(dev)
+                                    if dev.type == "cuda" else None)}
+    if rank0:
+        scale = float(one["logits"].abs().max())
+        out.update(tokens_equal=bool(torch.equal(got["tokens"], one["tokens"])),
+                   tokens=got["tokens"][0].tolist(),
+                   logit_err=float((got["logits"] - one["logits"]).abs().max()) / scale,
+                   one_process_prefill_ms=one["prefill_ms"],
+                   one_process_decode_ms_per_token=one["decode_ms_per_token"])
+    return out
+
+
 def _mesh_rank(dev: torch.device, dmesh) -> dict:
-    """The mesh phase's rank: (a) and (b), and this process's kernel
+    """The mesh phase's rank: (a), (b) and (d), and this process's kernel
     launches."""
     import repro_torch.configs as configs
     from repro_torch.kernels import coded_accum, spmm_block
@@ -2902,6 +2999,12 @@ def _mesh_rank(dev: torch.device, dmesh) -> dict:
         torch.cuda.empty_cache()
     out["moe"] = mesh_moe_block(dev, dmesh, configs.get(MESH_MOE_ARCH),
                                 MESH_MOE_BATCH, MESH_MOE_SEQ)
+    if dev.type == "cuda":
+        torch.cuda.empty_cache()
+    dec = configs.get(MESH_DEC_ARCH)
+    dec = dataclasses.replace(dec, num_layers=dec.group_size, encoder_layers=1)
+    out["decode"] = mesh_decode(dev, dmesh, dec, MESH_DEC_BATCH, MESH_DEC_PROMPT,
+                                MESH_DEC_NEW)
     out["launches"] = {**spmm_block.LAUNCHES, **coded_accum.LAUNCHES}
     return out
 
@@ -2911,8 +3014,8 @@ def _cli_losses(text: str) -> dict:
 
 
 def phase_mesh(smi: str, dev: torch.device) -> dict:
-    """The device mesh on the card (see the note above ``MESH_SHAPE``): (a)
-    and (b) in one rank, each checked.  Returns the rank's kernel
+    """The device mesh on the card (see the note above ``MESH_SHAPE``): (a),
+    (b) and (d) in one rank, each checked.  Returns the rank's kernel
     launches (the mesh's path launches none)."""
     from repro_torch.runtime.workergroup import spawn_group
 
@@ -2921,7 +3024,7 @@ def phase_mesh(smi: str, dev: torch.device) -> dict:
         (rank,) = spawn_group(_mesh_rank, 1, backend=MESH_BACKEND, timeout=MESH_TIMEOUT_S,
                               device=None if MESH_BACKEND == "nccl" else dev,
                               mesh=MESH_SHAPE)
-    lm, moe = rank["lm"], rank["moe"]
+    lm, moe, dec = rank["lm"], rank["moe"], rank["decode"]
     check(lm["loss_rel_err"] <= MESH_LOSS_RTOL,
           f"mesh lm: loss {lm['loss']} vs one process {lm['one_process_loss']}")
     check(lm["grad_rel_err"] <= MESH_GRAD_RTOL,
@@ -2936,6 +3039,10 @@ def phase_mesh(smi: str, dev: torch.device) -> dict:
          **{k: v for k, v in lm.items() if k != "grad_rel_errs"})
     emit(phase="mesh", part="moe_block", arch=MESH_MOE_ARCH, batch=MESH_MOE_BATCH,
          seq=MESH_MOE_SEQ, forms=moe)
+    check(dec["tokens_equal"] and dec["logit_err"] <= MESH_DEC_RTOL,
+          f"mesh decode {MESH_DEC_ARCH}: {dec}")
+    emit(phase="mesh", part="decode", arch=MESH_DEC_ARCH, layers=1, encoder_layers=1,
+         rtol=MESH_DEC_RTOL, **dec)
 
     return rank["launches"]
 
@@ -2981,6 +3088,9 @@ LAUNCH_ARCH = "internlm2-1.8b"
 LAUNCH_CELLS = {"card_train": dict(seq=512, batch=4, kind="train"),
                 "card_decode": dict(seq=4096, batch=4, kind="decode")}
 LAUNCH_MESH = {"data": 1, "model": 1}
+# and one cell on a fake production mesh ({data 16, model 16}, 256 ranks):
+# its collectives and meta seconds printed
+LAUNCH_FAKE_SHAPE = "decode_32k"
 # the arguments' bytes on the card against the dry run's exact arithmetic:
 # 0.5% plus 1 MiB (the allocator rounds each tensor up to 512 bytes)
 LAUNCH_ARG_RTOL, LAUNCH_ARG_SLACK = 5e-3, 1 << 20
@@ -3268,8 +3378,9 @@ def phase_launch(dev: torch.device, row1: dict) -> None:
     """The launch tooling on the card: the data sheet's peaks and the
     card's own (calibrated), the JAX package's kernel roofline of row 1's
     heaviest launch (added to that row), the dry run's byte account held
-    to the card's allocator on the two cells, and one full-size roofline
-    analysis on meta.  No kernel of the table is launched."""
+    to the card's allocator on the two cells, one cell dry-run sharded on
+    a fake production mesh, and one full-size roofline analysis on meta.
+    No kernel of the table is launched."""
     from repro_torch import configs
     from repro_torch.launch import dryrun, meshctx, roofline
 
@@ -3343,6 +3454,17 @@ def phase_launch(dev: torch.device, row1: dict) -> None:
             "meta_s": rec["meta_s"], "step_s": step_s, **result}
         emit(phase="launch", cell=name, arch=LAUNCH_ARCH, mesh=LAUNCH_MESH,
              **LAUNCH_CELLS[name], **cells[name])
+
+    # one cell sharded on a fake production mesh (256 ranks) in this process
+    t0 = time.perf_counter()
+    prod = dryrun.run_cell(LAUNCH_ARCH, LAUNCH_FAKE_SHAPE, False)
+    check(prod["status"] == "ok" and prod["collectives"]["total_bytes"] > 0,
+          f"launch fake mesh {LAUNCH_FAKE_SHAPE}: {prod}")
+    emit(phase="launch", fake_mesh_cell=LAUNCH_FAKE_SHAPE, arch=LAUNCH_ARCH,
+         mesh_shape=prod["mesh_shape"], collectives=prod["collectives"],
+         meta_s=prod["meta_s"], memory_analysis=prod["memory_analysis"],
+         flops_per_device=prod["cost_analysis"]["flops_per_device"],
+         seconds=time.perf_counter() - t0)
 
     t0 = time.perf_counter()
     analysis = roofline.analyze_cell(LAUNCH_ARCH, "train_4k")

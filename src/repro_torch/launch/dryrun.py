@@ -1,35 +1,51 @@
-"""Dry run without a mesh: every (arch x shape x mesh) cell on meta tensors.
+"""Dry run: every (arch x shape x mesh) cell, sharded, on a fake mesh.
 
     python -m repro_torch.launch.dryrun [--arch A] [--shape S] [--mesh single|multi|both]
 
 For each cell the step function the JAX package compiles -- the train step
 (bf16 parameters, AdamW with f32 state), the prefill step, or one decode
 token against a bf16 cache -- is built on meta tensors (shapes and dtypes,
-no storage) with each argument leaf's placement on the mesh, and run once
-on meta on the host: no card, no process group.  The record keeps the JAX
-package's keys where their meaning carries over:
+no storage), each argument leaf placed by its sanitised placement on the
+mesh, and run once, sharded, in this process: rank 0 of a fake process
+group of the mesh's size (``launch.mesh.fake_device_mesh``; 256 or 512
+ranks, collectives that move nothing), so no card and no other process.
+The record keeps the JAX package's keys where their meaning carries over:
 
 * ``memory_analysis.argument_bytes`` is exact arithmetic: each argument
   leaf's per-device shard under its sanitised placement, summed
   (parameters, optimizer state, batch and cache);
-* ``temp_bytes`` is the most bytes the step's own allocations hold at
-  once, tracked over its live storages (``LiveBytes``), and
-  ``peak_bytes_est`` the arguments plus that; the step runs once,
-  unsharded, so on a mesh of n devices both take an even 1/n share;
-* ``cost_analysis.flops_per_device`` is the step's
-  ``torch.utils.flop_counter.FlopCounterMode`` count (matrix products and
-  attention; elementwise work is not counted) over the device count;
-* what needs XLA or a process group is ``None``: ``bytes_per_device``
-  (XLA's bytes accessed), ``transcendentals`` and ``collectives``;
-* ``meta_s`` (the JAX package's ``compile_s``) is the meta run's seconds.
+* ``temp_bytes`` is the most bytes rank 0's own allocations hold at once,
+  tracked over the local storages it allocates (``LiveBytes``; a
+  DTensor's shard and the collectives' output buffers alike), and
+  ``peak_bytes_est`` the arguments plus that.  It leaves out what is no
+  tensor the step makes: the process group's own buffers and a library's
+  workspaces;
+* ``cost_analysis.flops_per_device`` is rank 0's own products: the
+  ``torch.utils.flop_counter`` formulas over the operations on its local
+  shards (``LocalFlops``; matrix products and attention, elementwise work
+  not counted).  Work that every shard of an axis repeats (replicated
+  heads, the flash-decode combine's all heads) counts on each, so it can
+  exceed the global FLOPs over the device count;
+* ``collectives`` is the JAX package's dict, ``{"bytes": {kind: n},
+  "counts": {kind: n}, "total_bytes": n}``: every collective rank 0
+  issues, forward and backward, each the bytes of its output
+  (``meshctx.Collectives``);
+* what needs XLA is ``None``: ``bytes_per_device`` (XLA's bytes accessed)
+  and ``transcendentals`` (no counter of the port counts them);
+* ``meta_s`` (the JAX package's ``compile_s``) is the sharded meta run's
+  seconds.
+
+A ``dict`` mesh given to ``run_cell`` is a fake mesh of that shape; its
+device type is the card's ("cuda": DTensor moves a shard to another dim
+by one all-to-all, as over NCCL), or ``device="cpu"`` for gloo's
+all-gather-and-chunk.
 
 Configs whose mixers scan over time (rwkv, mamba) run one Python step a
-token a layer, so a full-depth meta run of them is slow (rwkv6-3b's
-train_4k: minutes a layer group).  For them ``run_cell`` runs the 1- and
-2-group probes and extrapolates flops and bytes with ``_combine``, as the
-roofline's ``analyze_cell`` does (``depth`` says which was run): exact for
-flops, since every group is structurally identical, and a linear estimate
-of the peak.
+token a layer.  For them ``run_cell`` runs the 1- and 2-group probes and
+extrapolates flops, bytes and each kind of collective with ``_combine``,
+as the roofline's ``analyze_cell`` does (``depth`` says which was run):
+exact for flops and collectives, since every group is structurally
+identical, and a linear estimate of the peak.
 """
 
 from __future__ import annotations
@@ -50,7 +66,7 @@ from torch.utils.weak import WeakIdKeyDictionary
 
 from repro_torch.configs import ARCHS, get
 from repro_torch.launch import meshctx
-from repro_torch.launch.mesh import make_production_mesh, mesh_devices
+from repro_torch.launch.mesh import fake_device_mesh, make_production_mesh
 from repro_torch.models.registry import build
 from repro_torch.serving.serve_step import make_prefill_step
 from repro_torch.training.data import input_specs
@@ -195,18 +211,10 @@ def _serving_layout(param_specs: dict) -> dict:
 def _sanitize(structs, specs, mesh: dict):
     """Replicate any dimension whose size its axes do not divide -- the
     production choice for odd head counts, vocab sizes and short memory
-    axes.  The result has one entry a dimension."""
-    def fix(_, struct, spec):
-        shape = _shape(struct)
-        new = []
-        for dim, axes in zip(shape, tuple(spec) + (None,) * (len(shape) - len(spec))):
-            if axes is None:
-                new.append(None)
-                continue
-            new.append(axes if dim % _axis_size(axes, mesh) == 0 else None)
-        return tuple(new)
-
-    return _map(fix, structs, specs)
+    axes (``meshctx.fitted``).  The result has one entry a dimension."""
+    with meshctx.use_mesh(mesh):
+        return _map(lambda _, struct, spec: meshctx.fitted(_shape(struct), spec),
+                    structs, specs)
 
 
 # ---------------------------- cell builders ----------------------------------
@@ -250,7 +258,8 @@ def build_cell(cfg, shape_name: str, mesh: dict, ce_chunk=None, device="meta"):
     # decode: one token against a cache of length seq
     if getattr(cfg, "opt_serving_layout", False):
         param_specs = _sanitize(params, _serving_layout(param_specs), mesh)
-    cache = meta.init_cache(info["batch"], info["seq"], torch.bfloat16)
+    with meshctx.use_mesh(mesh):  # the cache's global shapes: placed by ``place``
+        cache = meta.init_cache(info["batch"], info["seq"], torch.bfloat16)
     cache_specs = _sanitize(cache, meta.cache_specs(cache), mesh)
     tokens = batch["tokens"]
     tok_specs = _sanitize(tokens, meshctx.spec("dp", None), mesh)
@@ -266,6 +275,65 @@ def build_cell(cfg, shape_name: str, mesh: dict, ce_chunk=None, device="meta"):
 
 # ------------------------------ live bytes -----------------------------------
 
+def _dtensor():
+    from torch.distributed.tensor import DTensor
+    return DTensor
+
+
+def _local(t):
+    """A DTensor's own shard, else ``t``."""
+    return t.to_local() if isinstance(t, _dtensor()) else t
+
+
+class LocalFlops(TorchDispatchMode):
+    """The FLOPs of the operations on this rank's own tensors, by
+    ``torch.utils.flop_counter``'s formulas: a DTensor's operation is
+    handed back to DTensor, so the count is of its local shards' products
+    (``FlopCounterMode`` outside DTensor counts an operation's global
+    shapes instead)."""
+
+    def __init__(self):
+        super().__init__()
+        self._counter = FlopCounterMode(display=False)
+
+    def total(self) -> int:
+        return self._counter.get_total_flops()
+
+    def __torch_dispatch__(self, func, types, args=(), kwargs=None):
+        if any(issubclass(t, _dtensor()) for t in types):
+            return NotImplemented
+        kwargs = kwargs or {}
+        out = func(*args, **kwargs)
+        if meshctx.shape_only(args, out):
+            return out
+        return self._counter._count_flops(func._overloadpacket, out, args, kwargs)
+
+
+def place(args, specs, dmesh, make=None):
+    """The argument trees with each tensor leaf of a dim or more a DTensor
+    on ``dmesh`` placed by its sanitised spec, from a local shard
+    ``make(local_shape, leaf, path)`` (default: an empty meta tensor); a
+    0-dim leaf (the optimizer's count) stays a plain tensor (made so too)
+    and a host int (the cache's pos) as it is, as the train step keeps
+    them."""
+    from torch.distributed.tensor import DTensor
+
+    mesh = meshctx.mesh_shape(dmesh)
+
+    def leaf(path, a, s):
+        if not isinstance(a, torch.Tensor):
+            return a
+        if a.dim() == 0:
+            return a if make is None else make((), a, path)
+        local_shape = shard_shape(tuple(a.shape), s, mesh)
+        local_t = (torch.empty(local_shape, dtype=a.dtype, device="meta") if make is None
+                   else make(local_shape, a, path))
+        return DTensor.from_local(local_t, dmesh, meshctx.placements(s, dmesh),
+                                  run_check=False, shape=a.shape, stride=a.stride())
+
+    return [_map(leaf, tree, spec) for tree, spec in zip(args, specs)]
+
+
 class LiveBytes(TorchDispatchMode):
     """The bytes of the storages that the operations under it allocate,
     while they live: ``live`` now, ``peak`` the most at once.
@@ -273,7 +341,10 @@ class LiveBytes(TorchDispatchMode):
     An operation's output allocates when its storage is none of its
     inputs' (a view or an in-place result shares one); a storage counts
     from its first output until it is freed.  Storages made before the
-    mode (the arguments) never count."""
+    mode (the arguments) never count.  A DTensor's operation is handed
+    back to DTensor, so the mode sees the operations on the local shards
+    that it runs (the collectives' outputs among them): this rank's
+    storages, not the fake tensors of DTensor's shape propagation."""
 
     def __init__(self):
         super().__init__()
@@ -288,7 +359,11 @@ class LiveBytes(TorchDispatchMode):
         return t.untyped_storage() in self._seen
 
     def __torch_dispatch__(self, func, types, args=(), kwargs=None):
+        if any(issubclass(t, _dtensor()) for t in types):
+            return NotImplemented
         out = func(*args, **(kwargs or {}))
+        if meshctx.shape_only(args, out):
+            return out
         inputs = {id(t.untyped_storage()) for t in _pytree_leaves((args, kwargs))
                   if isinstance(t, torch.Tensor)}
         for t in _pytree_leaves(out):
@@ -304,32 +379,49 @@ class LiveBytes(TorchDispatchMode):
         return out
 
 
-def _measure(cfg, shape_name: str, mesh: dict, ce_chunk=None) -> dict:
-    """One meta run of the cell's step at ``cfg``'s depth: its FLOPs, the
-    most bytes its allocations held at once (``temp``), what its outputs
-    hold of them (``out``) and which argument leaves they hand back
-    (``alias``, per device), all for the whole mesh but ``alias``."""
+def _measure(cfg, shape_name: str, mesh: dict, ce_chunk=None, device="cuda") -> dict:
+    """One sharded meta run of the cell's step at ``cfg``'s depth, as rank
+    0 of a fake ``mesh`` (``device`` its type): its local FLOPs, the most
+    bytes its allocations held at once (``temp``), what its outputs hold
+    of them (``out``), which argument leaves they hand back (``alias``),
+    and its collectives (``coll/bytes/<kind>``, ``coll/counts/<kind>``),
+    all per device."""
     with meshctx.use_mesh(mesh):
         fn, args, specs, _ = build_cell(cfg, shape_name, mesh, ce_chunk=ce_chunk)
-    per_device = {}  # an argument's storage -> its bytes on one device
+    with fake_device_mesh(mesh, device) as dmesh, meshctx.use_mesh(dmesh):
+        args = place(args, specs, dmesh)
+        per_device = {}  # an argument's local storage -> its bytes
+        for t in _pytree_leaves(args):
+            if isinstance(t, torch.Tensor):
+                st = _local(t).untyped_storage()
+                per_device[id(st)] = _local(t).numel() * _local(t).element_size()
+        t0 = time.perf_counter()
+        with LocalFlops() as flops, LiveBytes() as live, meshctx.Collectives() as coll:
+            out = fn(*args)
+        seconds = time.perf_counter() - t0
+        outs = [_local(t) for t in _pytree_leaves(out) if isinstance(t, torch.Tensor)]
+        held = {id(t.untyped_storage()): t.untyped_storage().nbytes()
+                for t in outs if live.owns(t)}
+        alias = {id(t.untyped_storage()) for t in outs} & per_device.keys()
+        summary = coll.summary()
+    record = {"flops": float(flops.total()), "temp": float(live.peak),
+              "out": float(sum(held.values())),
+              "alias": float(sum(per_device[i] for i in alias)), "seconds": seconds}
+    for what in ("bytes", "counts"):
+        for kind, n in summary[what].items():
+            record[f"coll/{what}/{kind}"] = float(n)
+    return record
 
-    def note(_, a, s):
-        if isinstance(a, torch.Tensor):
-            per_device[id(a.untyped_storage())] = shard_bytes(a, s, mesh)
 
-    for tree, spec in zip(args, specs):
-        _map(note, tree, spec)
-    t0 = time.perf_counter()
-    with LiveBytes() as live, FlopCounterMode(display=False) as flops:
-        out = fn(*args)
-    seconds = time.perf_counter() - t0
-    held = {id(t.untyped_storage()): t.untyped_storage().nbytes()
-            for t in _pytree_leaves(out) if isinstance(t, torch.Tensor) and live.owns(t)}
-    alias = {id(t.untyped_storage()) for t in _pytree_leaves(out)
-             if isinstance(t, torch.Tensor)} & per_device.keys()
-    return {"flops": float(flops.get_total_flops()), "temp": float(live.peak),
-            "out": float(sum(held.values())), "alias": float(sum(per_device[i] for i in alias)),
-            "seconds": seconds}
+def _collectives(m: dict) -> dict:
+    """The JAX package's collectives dict from a measure's ``coll/`` keys."""
+    out = {"bytes": {}, "counts": {}}
+    for k, v in m.items():
+        if k.startswith("coll/"):
+            _, what, kind = k.split("/", 2)
+            out[what][kind] = int(round(v))
+    out["total_bytes"] = int(sum(out["bytes"].values()))
+    return out
 
 
 def _probe_cfg(cfg, groups: int, enc_layers: int | None = None):
@@ -341,23 +433,27 @@ def _probe_cfg(cfg, groups: int, enc_layers: int | None = None):
 
 
 def _combine(p1: dict, p2: dict, reps: int) -> dict:
-    """total = p1 + (reps-1) * (p2 - p1), clamped at >= p1; a term that
-    is None in the probes stays None."""
+    """total = p1 + (reps-1) * (p2 - p1), clamped at >= p1, for every key
+    of either probe (a kind of collective one probe lacks counts 0 there);
+    a term that is None in the probes stays None."""
     out = {}
-    for k in p1:
-        if p1[k] is None:
+    for k in p1.keys() | p2.keys():
+        a, b = p1.get(k, 0.0), p2.get(k, 0.0)
+        if a is None:
             out[k] = None
             continue
-        marg = max(p2[k] - p1[k], 0.0)
-        out[k] = p1[k] + (reps - 1) * marg
+        out[k] = a + (reps - 1) * max(b - a, 0.0)
     return out
 
 
 def run_cell(arch: str, shape_name: str, multi_pod: bool, cfg_override=None,
-             ce_chunk=None, mesh=None, probes: bool | None = None) -> dict:
+             ce_chunk=None, mesh=None, probes: bool | None = None,
+             device="cuda") -> dict:
     """The cell's record (module docstring).  ``probes``: None runs the
     1- and 2-group probes for configs that scan over time and the full
-    depth otherwise; True or False forces either."""
+    depth otherwise; True or False forces either.  ``mesh``: a dict of
+    axis sizes (default the production mesh), run as a fake mesh of
+    ``device``'s type."""
     cfg = cfg_override or get(arch)
     ok, why = cell_supported(cfg, shape_name)
     if not ok:
@@ -366,7 +462,6 @@ def run_cell(arch: str, shape_name: str, multi_pod: bool, cfg_override=None,
                 "status": "skipped", "reason": why}
     if mesh is None:
         mesh = make_production_mesh(multi_pod=multi_pod)
-    n = mesh_devices(mesh)
     record = {"arch": arch, "shape": shape_name,
               "mesh": "multi" if multi_pod else "single",
               "mesh_shape": dict(mesh), "status": "ok",
@@ -384,29 +479,31 @@ def run_cell(arch: str, shape_name: str, multi_pod: bool, cfg_override=None,
     if probes is None:  # the configs that scan over time
         probes = bool(cfg.rwkv) or cfg.ssm is not None
     if probes:
-        m1 = _measure(_probe_cfg(cfg, 1), shape_name, mesh, ce_chunk)
-        m2 = _measure(_probe_cfg(cfg, 2), shape_name, mesh, ce_chunk)
+        m1 = _measure(_probe_cfg(cfg, 1), shape_name, mesh, ce_chunk, device)
+        m2 = _measure(_probe_cfg(cfg, 2), shape_name, mesh, ce_chunk, device)
         m = _combine(m1, m2, cfg.num_groups)
         m["seconds"] = m1["seconds"] + m2["seconds"]
         if cfg.encoder_layers:  # the encoder's marginal layer, at 1 group
-            enc2 = _measure(_probe_cfg(cfg, 1, enc_layers=2), shape_name, mesh, ce_chunk)
-            for k in ("flops", "temp", "out", "alias"):
-                m[k] += (cfg.encoder_layers - 1) * max(enc2[k] - m1[k], 0.0)
+            enc2 = _measure(_probe_cfg(cfg, 1, enc_layers=2), shape_name, mesh, ce_chunk,
+                            device)
+            for k in m:
+                if k != "seconds":
+                    m[k] += (cfg.encoder_layers - 1) * max(enc2.get(k, 0.0) - m1[k], 0.0)
             m["seconds"] += enc2["seconds"]
         record["depth"] = "probes: 1 and 2 groups"
     else:
-        m = _measure(cfg, shape_name, mesh, ce_chunk)
+        m = _measure(cfg, shape_name, mesh, ce_chunk, device)
         record["depth"] = "full"
     record["meta_s"] = round(m["seconds"], 2)
-    record["cost_analysis"] = {"flops_per_device": m["flops"] / n,
+    record["cost_analysis"] = {"flops_per_device": m["flops"],
                                "bytes_per_device": None, "transcendentals": None}
     arg = sum(by_kind.values())
-    temp = int(m["temp"] // n)
+    temp = int(m["temp"])
     record["memory_analysis"] = {
-        "argument_bytes": arg, "output_bytes": int(m["out"] // n), "temp_bytes": temp,
+        "argument_bytes": arg, "output_bytes": int(m["out"]), "temp_bytes": temp,
         "alias_bytes": int(m["alias"]), "peak_bytes_est": arg + temp}
     record["argument_bytes_by_kind"] = by_kind
-    record["collectives"] = None
+    record["collectives"] = _collectives(m)
     return record
 
 
@@ -470,7 +567,8 @@ def main(argv=None) -> int:
                     extra = (f" meta={rec['meta_s']}s ({rec['depth']}) "
                              f"flops/dev={rec['cost_analysis']['flops_per_device']:.3g} "
                              f"arg={ma['argument_bytes']:.3g}B "
-                             f"peak={ma['peak_bytes_est']:.3g}B")
+                             f"peak={ma['peak_bytes_est']:.3g}B "
+                             f"coll={rec['collectives']['total_bytes']:.3g}B")
                 elif status == "error":
                     failures += 1
                 print(f"[dryrun] {tag}: {status}{extra}", flush=True)

@@ -3,9 +3,10 @@
     python -m repro_torch.launch.report [--dryrun|--roofline|--perf]
 
 A record shaped as the JAX package writes it renders as that package
-renders it; a field that is ``None`` in the port's records (what needs XLA
-or a process group: HLO bytes, collectives) renders as ``—``, and a dry-run
-row gives its meta run's seconds where the JAX package gives its compile's.
+renders it: the dry run's collective bytes a device and the roofline's
+collective term included.  A field that is ``None`` in the port's records
+(what needs XLA: HLO bytes) renders as ``—``, and a dry-run row gives its
+sharded meta run's seconds where the JAX package gives its compile's.
 """
 
 from __future__ import annotations
@@ -36,10 +37,6 @@ def _f(x, spec: str) -> str:
     return NONE if x is None else format(x, spec)
 
 
-def _bound(terms: dict) -> float:
-    return max(v for v in terms.values() if v is not None)
-
-
 def dryrun_table(root: pathlib.Path | str | None = None) -> str:
     """Markdown table of dry-run records under ``root`` (default: the
     port's experiments dir).  Families that errored render as rows
@@ -63,11 +60,10 @@ def dryrun_table(root: pathlib.Path | str | None = None) -> str:
         ca = r["cost_analysis"]
         ma = r.get("memory_analysis", {})
         seconds = r["compile_s"] if "compile_s" in r else f"{r['meta_s']} (meta)"
-        coll = r["collectives"]
         lines.append(
             f"| {r['arch']} | {r['shape']} | {r['mesh']} | ok | {seconds} "
             f"| {ca['flops_per_device']:.3g} | {_f(ca['bytes_per_device'], '.3g')} "
-            f"| {_f(None if coll is None else coll['total_bytes'], '.3g')} "
+            f"| {r['collectives']['total_bytes']:.3g} "
             f"| {_gb(ma.get('argument_bytes', 0))} | {_gb(ma.get('temp_bytes', 0))} |")
     return "\n".join(lines)
 
@@ -92,7 +88,7 @@ def roofline_table(include_variants: bool = False,
         t = r["terms"]
         lines.append(
             f"| {r['arch']} | {r['shape']} | {opts} "
-            f"| {t['compute_s']:.4g} | {t['memory_s']:.4g} | {_f(t['collective_s'], '.4g')} "
+            f"| {t['compute_s']:.4g} | {t['memory_s']:.4g} | {t['collective_s']:.4g} "
             f"| {r['dominant'].replace('_s','')} "
             f"| {r['model_flops']:.3g} | {r['hlo_flops_total']:.3g} "
             f"| {r['useful_ratio']:.2f} | {r['roofline_fraction_bound']:.2%} |")
@@ -116,14 +112,14 @@ def perf_table(root: pathlib.Path | str | None = None) -> str:
         if len(variants) < 2:
             continue
         base = variants.get("baseline")
-        base_bound = _bound(base["terms"]) if base else None
+        base_bound = max(base["terms"].values()) if base else None
         for name, r in sorted(variants.items(), key=lambda kv: kv[0] != "baseline"):
             t = r["terms"]
-            bound = _bound(t)
+            bound = max(t.values())
             rel = f"{base_bound / bound:.2f}x" if base_bound and name != "baseline" else "--"
             lines.append(
                 f"| {arch}/{shape} | {name} | {t['compute_s']:.4g} | {t['memory_s']:.4g} "
-                f"| {_f(t['collective_s'], '.4g')} | {r['dominant'].replace('_s','')} "
+                f"| {t['collective_s']:.4g} | {r['dominant'].replace('_s','')} "
                 f"| {bound:.4g} | {rel} |")
     return "\n".join(lines)
 

@@ -19,9 +19,12 @@ Terms (per training or serving step, priced on the NVIDIA H100 SXM data
 sheet, ``launch.mesh``):
     compute_s    = counted FLOPs per device / 989e12 (dense bf16)
     memory_s     = analytic HBM bytes per device / 3.35e12
-    collective_s = None: the dry run counts no collective bytes yet
-                   (ROADMAP queue 1, item 8b); ``dominant`` is taken over
-                   the terms that exist.
+    collective_s = collective bytes per device / 450e9 (NVLink 4, one
+                   direction), the bytes the JAX package's formula takes
+                   of the dry run's record (``collective_bytes``): each
+                   kind's output bytes, an all-reduce's twice (a ring
+                   moves about twice its payload)
+and ``dominant`` is the largest of the three.
 
 The kernel-level functions (``machine_peaks``, ``fused_kernel_cost``,
 ``roofline_fraction``) price one coded local product as the JAX package
@@ -43,7 +46,7 @@ import torch
 from repro_torch.configs import ARCHS, get
 from repro_torch.core.blocks import resolve_device
 from repro_torch.launch.dryrun import SHAPES, _leaves, cell_supported, run_cell
-from repro_torch.launch.mesh import HBM_BW, PEAK_FLOPS_BF16
+from repro_torch.launch.mesh import HBM_BW, ICI_BW, PEAK_FLOPS_BF16
 from repro_torch.models.registry import build
 
 OUT_DIR = pathlib.Path(__file__).resolve().parents[3] / "experiments" / "torch" / "roofline"
@@ -202,6 +205,15 @@ def _recurrence_flops(cfg, tokens: int) -> float:
     return per_tok_layer * cfg.num_layers * tokens
 
 
+def collective_bytes(collectives: dict) -> float:
+    """A device's collective bytes of a dry-run record's ``collectives``,
+    the JAX package's way: all-gather + reduce-scatter + all-to-all +
+    collective-permute + 2 x all-reduce."""
+    b = collectives["bytes"]
+    return float(b["all-gather"] + b["reduce-scatter"] + b["all-to-all"]
+                 + b["collective-permute"] + 2 * b["all-reduce"])
+
+
 def analyze_cell(arch: str, shape: str, *, chips: int = 256,
                  cfg_override=None, force: bool = False,
                  opts: tuple = ()) -> dict:
@@ -227,7 +239,7 @@ def analyze_cell(arch: str, shape: str, *, chips: int = 256,
         return {"arch": arch, "shape": shape, "status": "error",
                 "error": rec.get("error", "probe failed")}
     total = {"flops": rec["cost_analysis"]["flops_per_device"], "bytes": None,
-             "coll_bytes": None}
+             "coll_bytes": collective_bytes(rec["collectives"])}
 
     # hidden recurrence flops (the scans' elementwise state updates)
     seq_tokens = info["batch"] * (info["seq"] if info["kind"] != "decode" else 1)
@@ -236,10 +248,9 @@ def analyze_cell(arch: str, shape: str, *, chips: int = 256,
     mem_model = analytic_memory_bytes(cfg, shape, chips=chips)
     compute_s = total["flops"] / PEAK_FLOPS_BF16
     memory_s = mem_model / HBM_BW
-    coll_s = None  # the dry run counts no collective bytes yet (ICI_BW)
+    coll_s = total["coll_bytes"] / ICI_BW
     terms = {"compute_s": compute_s, "memory_s": memory_s, "collective_s": coll_s}
-    present = {k: v for k, v in terms.items() if v is not None}
-    dominant = max(present, key=present.get)
+    dominant = max(terms, key=terms.get)
 
     # MODEL_FLOPS: 6*N_active*D train, 2*N_active*D inference
     n_total = _n_params(cfg)
@@ -251,7 +262,7 @@ def analyze_cell(arch: str, shape: str, *, chips: int = 256,
     ratio = model_flops / max(counted_total, 1.0)
 
     # step time bound & roofline fraction
-    step_bound = max(present.values())
+    step_bound = max(terms.values())
     mfu_bound = (model_flops / chips / PEAK_FLOPS_BF16) / max(step_bound, 1e-12)
 
     return {

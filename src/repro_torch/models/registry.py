@@ -32,6 +32,12 @@ With grad enabled and no cache, each layer group is re-materialised in
 the backward pass when ``cfg.remat`` is set; the encoder is not (the
 reference's encoder scan has no remat either).
 
+Under a ``DeviceMesh`` (``launch.meshctx``) the same code runs sharded:
+``init_cache`` places each cache leaf by ``cache_specs`` (each rank
+allocating its own shard), prefill and decode write a group's slice of it
+in place, and the memory (image tokens, the encoder's output) is placed
+("dp", None, None).  With no ``DeviceMesh`` nothing is placed.
+
 One departure from the reference: its cached decode stores the residual
 stream as the RWKV channel mix's token-shift state (``last_cm``) where its
 forward shifts the channel mix's own input, the normed stream; the port
@@ -41,9 +47,11 @@ stores that input, so its decode is its forward (ROADMAP section 3).
 from __future__ import annotations
 
 import contextvars
+import functools
 
 import torch
-from torch.utils.checkpoint import checkpoint
+from torch.utils.checkpoint import (CheckpointPolicy, checkpoint,
+                                    create_selective_checkpoint_contexts)
 
 from repro_torch.core.blocks import resolve_device
 from repro_torch.launch import meshctx
@@ -84,11 +92,71 @@ def _store(stacked, new, g: int) -> None:
     """Write group g's new state leaves into the stacked cache ``stacked``
     (a dict or a list).  A stacked leaf in another dtype than the new one
     is first replaced by a copy in the new dtype, as the reference's scan
-    stacks what its body returns."""
+    stacks what its body returns.  A placed leaf (a DTensor) keeps its
+    placements: the new state is redistributed to them and each rank
+    writes its own shard of group g in place."""
+    from torch.distributed.tensor import DTensor, Shard
+
     for k in (new if isinstance(new, dict) else range(len(new))):
         if stacked[k].dtype != new[k].dtype:
             stacked[k] = stacked[k].to(new[k].dtype)
-        stacked[k][g] = new[k]
+        if isinstance(stacked[k], DTensor):
+            want = [Shard(q.dim - 1) if q.is_shard() else q for q in stacked[k].placements]
+            one = new[k].redistribute(stacked[k].device_mesh, want)
+            stacked[k].to_local()[g].copy_(one.to_local())
+        else:
+            stacked[k][g] = new[k]
+
+
+@torch.library.custom_op("repro_torch::tp_out", mutates_args=())
+def _tp_out(x: torch.Tensor) -> torch.Tensor:
+    """The marker of a block's TP-summed output (``opt_remat_save_tp``):
+    its value, a copy (a custom op may not return its input)."""
+    return x.clone()
+
+
+@_tp_out.register_fake
+def _(x):
+    return torch.empty_like(x)
+
+
+#: the TP sums a block's placed output comes from, as the group's recompute
+#: sees them (``maybe_shard``'s explicit redistributions)
+_TP_SUMS = ("all_reduce", "reduce_scatter_tensor")
+
+
+def _save_tp(ctx, op, *args, **kwargs):
+    """The remat policy of ``opt_remat_save_tp`` (the reference's
+    ``save_only_these_names("tp_out")``): save the marked block outputs
+    and the TP sums they come from, recompute everything else.  PyTorch's
+    recompute re-runs every op it does not take from the saved ones, so
+    the sums are saved with the outputs they make (no collective of a TP
+    sum runs twice); the weights' all-gathers run inside DTensor's ops,
+    unseen here, and are recomputed (FSDP keeps no gathered weight)."""
+    if op is torch.ops.repro_torch.tp_out.default or (
+            getattr(op, "namespace", None) == "_c10d_functional"
+            and op.__name__.split(".")[0] in _TP_SUMS):
+        return CheckpointPolicy.MUST_SAVE
+    return CheckpointPolicy.PREFER_RECOMPUTE
+
+
+class _TPSave(torch.autograd.Function):
+    """``t`` through the ``tp_out`` marker, on each rank's own shard of a
+    DTensor (placements kept); the gradient passes as it arrives (a partial
+    sum stays one: no collective of its own)."""
+
+    @staticmethod
+    def forward(ctx, t):
+        from torch.distributed.tensor import DTensor
+
+        if not isinstance(t, DTensor):
+            return _tp_out(t)
+        return DTensor.from_local(_tp_out(t.to_local()), t.device_mesh, t.placements,
+                                  run_check=False, shape=t.shape, stride=t.stride())
+
+    @staticmethod
+    def backward(ctx, grad):
+        return grad
 
 
 class Model:
@@ -201,6 +269,34 @@ class Model:
 
     def init_cache(self, batch: int, max_seq: int,
                    dtype: torch.dtype = torch.bfloat16) -> dict:
+        """Zeros for ``batch`` sequences of up to ``max_seq`` positions.
+        Under a ``DeviceMesh`` each leaf is a DTensor placed by
+        ``cache_specs`` with the dims that do not divide replicated
+        (``meshctx.fitted``, the dry run's sanitizer), each rank allocating
+        only its own shard."""
+        if meshctx.device_mesh() is None:
+            return self._init_cache(batch, max_seq, dtype)
+        dev, self.device = self.device, torch.device("meta")
+        try:
+            shapes = self._init_cache(batch, max_seq, dtype)
+        finally:
+            self.device = dev
+
+        def place(leaf, axes):
+            if not isinstance(leaf, torch.Tensor):
+                return leaf
+            return meshctx.zeros(tuple(leaf.shape), leaf.dtype, dev, axes)
+
+        def walk(t, s):
+            if isinstance(t, dict):
+                return {k: walk(t[k], s[k]) for k in t}
+            if isinstance(t, list):
+                return [walk(a, b) for a, b in zip(t, s, strict=True)]
+            return place(t, s)
+
+        return walk(shapes, self.cache_specs(shapes))
+
+    def _init_cache(self, batch, max_seq, dtype) -> dict:
         return {"pos": 0, "groups": {f"slot{s}": self._slot_cache(mixer, batch, max_seq, dtype)
                                      for s, (mixer, _) in enumerate(self.plan)}}
 
@@ -251,8 +347,14 @@ class Model:
         # reduce-scatter and the norms and residual adds run sharded
         sp = cache is None and cfg.opt_seq_parallel
 
+        save = cache is None and cfg.opt_remat_save_tp
+
         def out_shard(t):
-            return maybe_shard(t, "dp", "model", None) if sp else t
+            # the block's output placed: its TP sum (an all-reduce, or a
+            # reduce-scatter under Megatron-SP) explicit, and marked for
+            # the remat policy with opt_remat_save_tp
+            t = maybe_shard(t, "dp", "model" if sp else None, None)
+            return _TPSave.apply(t) if save else t
 
         aux = torch.zeros((), dtype=torch.float32, device=x.device)
         new = {}
@@ -296,8 +398,11 @@ class Model:
         With ``cfg.remat``, grad enabled and no cache, each group runs under
         ``torch.utils.checkpoint`` (the reference's ``jax.checkpoint`` of
         its scan body): the backward pass recomputes it, so activations
-        stay about one group deep.  ``opt_remat_save_tp`` only names saved
-        values in the reference; it is plain remat here.  Under a mesh each
+        stay about one group deep.  With ``opt_remat_save_tp`` too the
+        checkpoint is selective (``_save_tp``, the reference's
+        ``save_only_these_names("tp_out")``): the marked block outputs and
+        their TP sums are saved, and the recompute issues no TP sum again.
+        Under a mesh each
         group's output is placed ("dp", "model", None) with
         ``opt_seq_parallel`` in training (the residual stream
         sequence-sharded between blocks), ("dp", None, None) otherwise.
@@ -330,10 +435,14 @@ class Model:
 
         remat = self.cfg.remat and cache is None and torch.is_grad_enabled()
         ctx = contextvars.copy_context() if remat else None
+        kw = {}
+        if remat and self.cfg.opt_remat_save_tp:
+            kw["context_fn"] = functools.partial(create_selective_checkpoint_contexts,
+                                                 _save_tp)
         aux = torch.zeros((), dtype=torch.float32, device=x.device)
         for g in range(self.cfg.num_groups):
             if remat:
-                x, a = checkpoint(ctx.run, group, x, g, memory, use_reentrant=False)
+                x, a = checkpoint(ctx.run, group, x, g, memory, use_reentrant=False, **kw)
             else:
                 x, a = group(x, g, memory)
             aux = aux + a
@@ -345,6 +454,7 @@ class Model:
         attention + MLP layers and ``enc_final_norm``."""
         cfg = self.cfg
         M = frames.shape[1]
+        frames = maybe_shard(frames, "dp", None, None)
         x = frames + sinusoidal_positions(M, cfg.d_model, frames.device).to(frames.dtype)
         positions = torch.arange(M, device=frames.device)
         layers = _unbind(params["encoder"])
@@ -355,6 +465,22 @@ class Model:
             h = norm(x, p["norm2"], cfg.norm)
             x = x + mlp_apply(h, p["ffn"], cfg.act, cfg.mlp_bias)
         return norm(x, params["enc_final_norm"], cfg.norm)
+
+    def _embed(self, table, tokens):
+        """The rows of ``table`` (V, d) at ``tokens``.  Under a
+        ``DeviceMesh`` the table's vocab is sharded over "model": with
+        grad disabled (prefill, decode) DTensor's embedding rule reads
+        each rank's rows in place (an indexed lookup would move half the
+        table a step); with grad, the token ids are replicated first and
+        the rows indexed, since the embedding rule's partial output cannot
+        take the backward's gradient and torch 2.11's DTensor refuses the
+        indexed lookup's backward with sharded indices."""
+        if meshctx.device_mesh() is None:
+            return table[tokens.long()]
+        if not torch.is_grad_enabled():  # each rank's own rows of ids first
+            tokens = maybe_shard(tokens, meshctx.fit(tokens.shape[0], "dp"), None)
+            return torch.nn.functional.embedding(tokens.long(), table)
+        return table[maybe_shard(tokens, None, None).long()]
 
     def _positional(self, x: torch.Tensor, pos0: int) -> torch.Tensor:
         """The sinusoidal table's rows pos0..pos0+S added to x (models
@@ -381,7 +507,7 @@ class Model:
         cfg = self.cfg
         tokens = torch.as_tensor(tokens, device=self.device)
         S = tokens.shape[1]
-        x = maybe_shard(params["embed"][tokens.long()], "dp", None, None)
+        x = maybe_shard(self._embed(params["embed"], tokens), "dp", None, None)
         pos0 = cache["pos"] if cache is not None else 0
         positions = pos0 + torch.arange(S, device=self.device)
         if not cfg.use_rope:
@@ -393,6 +519,7 @@ class Model:
             memory = self._encode(params, torch.as_tensor(extras["frames"], device=self.device))
         elif cfg.family == "vlm" and "vision" in extras:
             memory = torch.as_tensor(extras["vision"], device=self.device)
+        memory = maybe_shard(memory, "dp", None, None)
 
         x, aux = self._run_groups(x, params, positions, cache, pos0, memory)
         x = norm(x, params["final_norm"], cfg.norm)
@@ -409,10 +536,16 @@ class Model:
         return params["head"]
 
     def logits(self, params: dict, x: torch.Tensor) -> torch.Tensor:
-        """(..., V) in f32 (f64 for an f64 model)."""
+        """(..., V) in f32 (f64 for an f64 model); on a mesh the batch over
+        "dp" where it divides and the vocab over "model", but where a rank
+        holds one row (a single sequence): its vocab is replicated, since
+        DTensor's argmax over a vocab-sharded block of one row fails
+        (torch 2.13, ``_nonlinear_redux``)."""
         out = x @ self.head_weight(params)
+        B, bax = x.shape[0], meshctx.fit(x.shape[0], "dp")
+        rows = B // meshctx.dp_size() if bax is not None else B
         return maybe_shard(out.to(torch.promote_types(out.dtype, torch.float32)),
-                           "dp", None, "model")
+                           bax, None, "model" if rows > 1 else None)
 
     def loss(self, params: dict, batch: dict) -> torch.Tensor:
         """batch: tokens (B, S), labels (B, S) (-1: no label) -> the mean

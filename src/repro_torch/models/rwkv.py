@@ -17,6 +17,15 @@ as the reference's ``jax.lax.scan``; each step's k v^T (and u k v^T) is
 made for all tokens at once before it, and each step reads its token's
 views of those tensors.  Decode carries (last_x, last_cm,
 S): the time mix's and the channel mix's last inputs and the state.
+
+Under a ``DeviceMesh`` the block places what the reference places: the
+(B, S, H, hs) heads ("dp", None, "model", None), the output ("dp", None,
+None) and the channel mix's hidden ("dp", None, "model").  The heads go
+over "model" only where H divides among the model shards (rwkv6-3b's 40
+heads on 16 shards are replicated, as the reference's sanitizer
+replicates them), and so does the state S of a decode step.  The scan runs
+on each rank's own batch and heads (``meshctx.local``): no rank gathers
+the heads of another.
 """
 
 from __future__ import annotations
@@ -24,6 +33,8 @@ from __future__ import annotations
 import torch
 import torch.nn.functional as F
 
+from repro_torch.launch import meshctx
+from repro_torch.launch.meshctx import maybe_shard
 from repro_torch.models.layers import ParamDef, activation
 
 DECAY_RANK = 64
@@ -81,25 +92,55 @@ def rwkv_apply(x: torch.Tensor, p: dict, cfg, *, state: dict | None = None):
     B, S, d = x.shape
     hs = cfg.rwkv_head_size
     H = d // hs
+    bax, hax = meshctx.fit(B, "dp"), meshctx.fit(H, "model")
+
+    def heads(t):  # placed flat first, and the gradient placed before the view's
+        # backward: DTensor splits or merges no unevenly sharded dim
+        return meshctx.grad_placed(maybe_shard(t, bax, None, hax).reshape(B, S, H, hs),
+                                   bax, None, hax, None)
 
     xprev = _shift(x, None if state is None else state["last_x"])
     xr, xk, xv, xg, xw = (_mix(x, xprev, p["mu"][i]) for i in range(5))
 
-    r = (xr @ p["wr"]).reshape(B, S, H, hs)
-    k = (xk @ p["wk"]).reshape(B, S, H, hs)
-    v = (xv @ p["wv"]).reshape(B, S, H, hs)
+    r = heads(xr @ p["wr"])
+    k = heads(xk @ p["wk"])
+    v = heads(xv @ p["wv"])
     g = F.silu(xg @ p["wg"])
     # data-dependent decay in (0, 1): w = exp(-exp(lora(xw) + base))
     dec = torch.tanh(xw @ p["decay_a"]) @ p["decay_b"] + p["decay_base"]
     acc = torch.promote_types(x.dtype, torch.float32)
-    w = torch.exp(-torch.exp(dec.to(acc))).reshape(B, S, H, hs)
+    w = heads(torch.exp(-torch.exp(dec.to(acc))))
 
-    u = p["u"].to(acc)
+    u = maybe_shard(p["u"], hax, None).to(acc)
     r, k, v = r.to(acc), k.to(acc), v.to(acc)
     kv = k[..., :, None] * v[..., None, :]               # (B,S,H,hs,hs)
     ukv = u[:, :, None] * kv
-    Sst = (torch.zeros((B, H, hs, hs), dtype=acc, device=x.device)
-           if state is None else state["S"])
+    hd4, hd5 = (bax, None, hax, None), (bax, None, hax, None, None)
+    scan = meshctx.local(_scan, (hd4, hd4, hd5, hd5,
+                                 (bax, hax, None, None) if state is not None else None),
+                         (hd4, (bax, hax, None, None)))
+    o, Sst = scan(r, w, kv, ukv, None if state is None else state["S"])
+    # each merge of the heads takes its gradient in the heads' placement
+    o = meshctx.grad_placed(o.reshape(B, S, d), bax, None, hax).to(x.dtype)
+
+    # per-head RMS normalisation (the reference's stand-in for group norm)
+    oh = o.reshape(B, S, H, hs)
+    var = oh.to(acc).square().mean(-1, keepdim=True)
+    o = meshctx.grad_placed((oh * torch.rsqrt(var + 1e-6)).reshape(B, S, d), bax, None, hax)
+    o = o.to(x.dtype) * p["ln_out"]
+    out = maybe_shard((o * g) @ p["wo"], "dp", None, None)
+
+    if state is None:
+        return out, None
+    return out, {"last_x": x[:, -1], "last_cm": state["last_cm"], "S": Sst}
+
+
+def _scan(r, w, kv, ukv, Sst):
+    """The recurrence over each head, a token a step, from ``Sst`` (zeros
+    in the accumulation dtype where None): (o (B,S,H,hs), the last S)."""
+    B, _, H, hs = r.shape
+    if Sst is None:
+        Sst = torch.zeros((B, H, hs, hs), dtype=r.dtype, device=r.device)
     # each token's views by one unbind a tensor: its backward stacks the
     # steps' gradients once, where indexing step t would add a zero-filled
     # tensor of the whole sequence's size a step (O(S^2) traffic)
@@ -107,18 +148,7 @@ def rwkv_apply(x: torch.Tensor, p: dict, cfg, *, state: dict | None = None):
     for r_t, w_t, kv_t, ukv_t in zip(*(a.unbind(1) for a in (r, w, kv, ukv))):
         os.append((r_t[..., None] * (Sst + ukv_t)).sum(-2))
         Sst = w_t[..., None] * Sst + kv_t
-    o = torch.stack(os, 1).reshape(B, S, d).to(x.dtype)
-
-    # per-head RMS normalisation (the reference's stand-in for group norm)
-    oh = o.reshape(B, S, H, hs)
-    var = oh.to(acc).square().mean(-1, keepdim=True)
-    o = (oh * torch.rsqrt(var + 1e-6)).reshape(B, S, d)
-    o = o.to(x.dtype) * p["ln_out"]
-    out = (o * g) @ p["wo"]
-
-    if state is None:
-        return out, None
-    return out, {"last_x": x[:, -1], "last_cm": state["last_cm"], "S": Sst}
+    return torch.stack(os, 1), Sst
 
 
 def channel_mix_apply(x: torch.Tensor, p: dict, cfg, *, last: torch.Tensor | None = None):
@@ -127,7 +157,8 @@ def channel_mix_apply(x: torch.Tensor, p: dict, cfg, *, last: torch.Tensor | Non
     xprev = _shift(x, last)
     xk = _mix(x, xprev, p["mu"][0])
     xr = _mix(x, xprev, p["mu"][1])
-    vv = activation(xk @ p["wk"], "relu_sq") @ p["wv"]
+    kk = maybe_shard(activation(xk @ p["wk"], "relu_sq"), "dp", None, "model")
+    vv = kk @ p["wv"]
     rr = torch.sigmoid(xr @ p["wr"])
     return rr * vv, (x[:, -1] if last is not None else None)
 

@@ -8,7 +8,8 @@
   ``MuxResult`` (many jobs over one pool, ``"sim"``, ``"live"`` or a
   ``MuxProcPool``), ``run_device_job`` (a timed ``CodedOp`` apply) and
   ``run_group_job`` (the same with one worker a process, over a
-  ``torch.distributed`` group), each returning an ``ExecutionReport``;
+  ``torch.distributed`` group; ``run_group_jobs`` several configurations
+  in one launch), each returning an ``ExecutionReport``;
 * the process runtime: ``run_proc_job`` / ``ProcPool`` (one job over
   worker processes that can be killed, frozen or slowed; a
   ``WorkerProcesses`` keeps them for the next job) and ``MuxProcPool``, with the fault plans of ``runtime.chaos``
@@ -33,7 +34,7 @@ _EXPORTS = {
         "ShiftedExponential"),
     "repro_torch.runtime.executor": (
         "ExecutionReport", "JobMux", "MuxJob", "MuxResult", "run_coded_job",
-        "run_device_job", "run_group_job", "run_live_job"),
+        "run_device_job", "run_group_job", "run_group_jobs", "run_live_job"),
     "repro_torch.runtime.chaos": ("FaultLedger", "FaultPlan", "FaultRealization"),
     "repro_torch.runtime.procpool": ("MuxProcPool", "ProcPool", "WorkerProcesses",
                                      "run_proc_job"),

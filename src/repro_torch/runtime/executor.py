@@ -1024,23 +1024,21 @@ def run_device_job(
 _PACK_ARRAYS = ("vals", "src", "wslot", "slot_of", "live_tiles", "tile_scale")
 
 
-def _group_job_rank(device, shared, plan, cfg, survivors, repeats: int, pack_meta):
-    """One rank of ``run_group_job``: its worker's apply, timed in parts.
+def _group_job_rank(device, shared, plan, configs, repeats: int, pack_meta):
+    """One rank of ``run_group_jobs``: its worker's apply in each
+    configuration (a ``CodedMatmulConfig`` and a survivor mask), timed in
+    parts.
 
     Maps the shared operands (and the host pack, whose tiles of this
-    rank's worker alone go to the device), binds the op to the world group,
-    runs one warm-up apply, then ``repeats`` applies, each started after a
-    barrier, with the staging's marks (``STAGE_MARK``) splitting each into
-    its local product and its collective.  Rank 0 writes C into the shared
-    output.  Returns plain numbers."""
+    rank's worker alone go to the device), and for each configuration
+    binds the op to the world group, runs one warm-up apply, then
+    ``repeats`` applies, each started after a barrier, with the staging's
+    marks (``STAGE_MARK``) splitting each into its local product and its
+    collective.  Rank 0 writes configuration i's C into the shared output
+    ``C{i}``.  Returns plain numbers, a dict a configuration."""
     import torch.distributed as dist
 
-    from repro_torch.coded import from_plan
-    from repro_torch.core.coded_matmul import STAGE_MARK, WorkerTilePack, gather_blocks
-    from repro_torch.kernels import coded_accum, spmm_block
-
-    def launch_counts():
-        return {**spmm_block.LAUNCHES, **coded_accum.LAUNCHES}
+    from repro_torch.core.coded_matmul import WorkerTilePack
 
     arrays = shared.open()
     group = dist.group.WORLD
@@ -1052,9 +1050,23 @@ def _group_job_rank(device, shared, plan, cfg, survivors, repeats: int, pack_met
         compute_dtype=pack_meta["compute_dtype"],
         **{f: (None if fields[f] is None else fields[f].numpy())
            for f in ("src", "wslot", "slot_of", "live_tiles", "tile_scale")})}
-    op = from_plan(cfg, plan).bind(device, group=group)
-    if survivors is not None:
-        op = op.with_survivors(survivors)
+    return [_group_job_config(device, group, plan, cfg, survivors, repeats, A, B, kw,
+                              arrays[f"C{i}"])
+            for i, (cfg, survivors) in enumerate(configs)]
+
+
+def _group_job_config(device, group, plan, cfg, survivors, repeats, A, B, kw, C_out) -> dict:
+    """One configuration of a ``_group_job_rank``: its applies, their
+    times and launches; rank 0 writes C into ``C_out``."""
+    import torch.distributed as dist
+
+    from repro_torch.coded import from_plan
+    from repro_torch.core.coded_matmul import STAGE_MARK, gather_blocks
+    from repro_torch.kernels import coded_accum, spmm_block
+
+    def launch_counts():
+        return {**spmm_block.LAUNCHES, **coded_accum.LAUNCHES}
+
     cuda = device.type == "cuda"
 
     def stamp():
@@ -1067,6 +1079,9 @@ def _group_job_rank(device, shared, plan, cfg, survivors, repeats: int, pack_met
     def ms(a, b) -> float:
         return a.elapsed_time(b) if cuda else (b - a) * 1e3
 
+    op = from_plan(cfg, plan).bind(device, group=group)
+    if survivors is not None:
+        op = op.with_survivors(survivors)
     before = launch_counts()
     out = op.apply(A, B, **kw)  # warm-up: the device pack is made here
     synchronize(device)
@@ -1089,7 +1104,7 @@ def _group_job_rank(device, shared, plan, cfg, survivors, repeats: int, pack_met
     launches = {k: v - before[k] for k, v in launch_counts().items()}
     C = gather_blocks(out, op.plan_, group) if cfg.out_sharded else out
     if dist.get_rank(group) == 0:
-        arrays["C"].copy_(C.to("cpu", torch.float32))
+        C_out.copy_(C.to("cpu", torch.float32))
     return {"rank": dist.get_rank(group), "shard_shape": list(out.shape),
             **{k: float(np.median(v)) for k, v in times.items()},
             "samples": times, "launches": launches,
@@ -1129,6 +1144,18 @@ def run_group_job(
     each re-deriving the decode matrix from the same host plan.  A launch
     past ``timeout`` seconds is killed and raises.
     """
+    (report,) = run_group_jobs(A, B, plan, backend=backend, device=device,
+                               configs=[(out_sharded, survivors)], repeats=repeats,
+                               a_sparse=a_sparse, timeout=timeout)
+    return report
+
+
+def run_group_jobs(A, B, plan, *, backend: str, configs, device=None, repeats: int = 3,
+                   a_sparse=None, timeout: float = 600.0) -> list:
+    """``run_group_job`` in several configurations, each an
+    ``(out_sharded, survivors)`` pair, in one launch of the group: the
+    operands and the pack reach the ranks once, and each rank runs the
+    configurations in order.  One ``ExecutionReport`` a configuration."""
     from repro_torch.coded import CodedMatmulConfig, from_plan
     from repro_torch.core.coded_matmul import _host_f32
     from repro_torch.runtime.workergroup import SharedArrays, rank_device, spawn_group
@@ -1136,35 +1163,43 @@ def run_group_job(
 
     N = plan.num_workers
     dev = rank_device(0, N, backend, device)
-    cfg = CodedMatmulConfig(backend="block_sparse", out_sharded=out_sharded)
-    op = from_plan(cfg, plan)
-    if survivors is not None:
-        op = op.with_survivors(survivors)  # an undecodable mask raises here
+    cfgs = []
+    for out_sharded, survivors in configs:
+        cfg = CodedMatmulConfig(backend="block_sparse", out_sharded=out_sharded)
+        if survivors is not None:
+            from_plan(cfg, plan).with_survivors(survivors)  # an undecodable mask raises here
+        cfgs.append((cfg, survivors))
+    op = from_plan(cfgs[0][0], plan)
     A_np, B_np = _host_f32(A), _host_f32(B)
     ell = a_sparse if a_sparse is not None else dense_to_block_ell(
-        A_np, block_size=cfg.block_size)
-    pack = op.pack_for(ell, use_cache=False)
+        A_np, block_size=op.config.block_size)
+    pack = op.pack_for(ell, use_cache=False)  # the same for every configuration
     inputs = {"A": A_np, "B": B_np, **{f"pack.{f}": getattr(pack, f) for f in _PACK_ARRAYS
                                        if getattr(pack, f) is not None}}
     pack_meta = {"block_size": pack.block_size, "compute_dtype": pack.compute_dtype}
     r, t = A_np.shape[1], B_np.shape[1]
-    with SharedArrays.create(inputs, {"C": ((r, t), torch.float32)}) as shared:
+    outputs = {f"C{i}": ((r, t), torch.float32) for i in range(len(cfgs))}
+    with SharedArrays.create(inputs, outputs) as shared:
         ranks = spawn_group(_group_job_rank, N, backend=backend, device=device,
                             timeout=timeout,
-                            args=(shared, plan, cfg, survivors, repeats, pack_meta))
-        C = shared.open()["C"].clone()
-    slowest = max(rank["apply_ms"] for rank in ranks) / 1e3
-    used = (int(op.survivors.sum()) if op.survivors is not None else N)
-    return ExecutionReport(
-        scheme="group_block_sparse",
-        workers_used=used,
-        num_workers=N,
-        sim_compute_time=slowest,
-        decode_wall_time=0.0,
-        total_time=slowest,
-        decode_stats={"group": N, "backend": backend, "out_sharded": out_sharded,
-                      "repeats": repeats,
-                      "collective_path": f"{backend} on {dev.type} tensors",
-                      "ranks": ranks},
-        blocks=[C.to(dev)],
-    )
+                            args=(shared, plan, cfgs, repeats, pack_meta))
+        Cs = [shared.open()[f"C{i}"].clone() for i in range(len(cfgs))]
+    reports = []
+    for i, ((cfg, survivors), C) in enumerate(zip(cfgs, Cs, strict=True)):
+        by_rank = [rank[i] for rank in ranks]
+        slowest = max(rank["apply_ms"] for rank in by_rank) / 1e3
+        used = int(np.asarray(survivors, dtype=bool).sum()) if survivors is not None else N
+        reports.append(ExecutionReport(
+            scheme="group_block_sparse",
+            workers_used=used,
+            num_workers=N,
+            sim_compute_time=slowest,
+            decode_wall_time=0.0,
+            total_time=slowest,
+            decode_stats={"group": N, "backend": backend, "out_sharded": cfg.out_sharded,
+                          "repeats": repeats,
+                          "collective_path": f"{backend} on {dev.type} tensors",
+                          "ranks": by_rank},
+            blocks=[C.to(dev)],
+        ))
+    return reports

@@ -3,6 +3,12 @@
 Eager PyTorch on the model's device: greedy decoding takes the argmax (the
 first of equal logits), temperature sampling draws from a
 ``torch.Generator`` on that device.
+
+Under a ``DeviceMesh`` (``launch.meshctx.use_mesh``) the same steps take
+DTensor parameters (``meshctx.distribute``), make or take a cache placed
+by ``Model.cache_specs`` (``Model.init_cache``), and return DTensor
+logits, tokens and cache; the cache is written in place, each rank its
+own shard.
 """
 
 from __future__ import annotations

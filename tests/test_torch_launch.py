@@ -365,7 +365,8 @@ def test_run_cell_records_the_argument_bytes(ref, tiny_shapes, shp):
         assert ma["argument_bytes"] == sum(rec["argument_bytes_by_kind"].values())
         assert ma["peak_bytes_est"] == ma["argument_bytes"] + ma["temp_bytes"] > 0
         assert rec["cost_analysis"]["flops_per_device"] > 0
-        assert rec["collectives"] is None and rec["depth"] == "full"
+        coll = rec["collectives"]
+        assert coll["total_bytes"] == sum(coll["bytes"].values()) > 0 and rec["depth"] == "full"
 
 
 @pytest.mark.parametrize("arch", ARCHS)

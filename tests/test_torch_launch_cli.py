@@ -57,7 +57,7 @@ def test_meshes_and_spec():
     assert mesh.make_mesh_for_devices(48) == {"data": 3, "model": 16}
     with pytest.raises(ValueError, match="not divisible"):
         mesh.make_mesh_for_devices(20)
-    assert mesh.ICI_BW is None
+    assert mesh.ICI_BW == 450e9
     assert meshctx.spec("dp", "model") == () and meshctx.get_mesh() is None
     with meshctx.use_mesh({"data": 4, "model": 2}):
         assert meshctx.spec("dp", None, "model", ("pod", "model")) == \
@@ -151,23 +151,24 @@ def test_dryrun_roofline_and_report_clis(tmp_path):
                                       "internlm2-1.8b__train_4k__single.json"]
     single = json.loads(recs[1].read_text())
     assert single["mesh_shape"] == {"data": 16, "model": 16}
-    assert single["depth"] == "full" and single["collectives"] is None
+    assert single["depth"] == "full" and single["collectives"]["total_bytes"] > 0
+    assert single["collectives"]["total_bytes"] == sum(single["collectives"]["bytes"].values())
     # the cache: a second run reads the records
     assert "cached" in _run("repro_torch.launch.dryrun", "--arch", "internlm2-1.8b",
                             "--shape", "train_4k", "--out", str(tmp_path / "dryrun"))
 
     out = _run("repro_torch.launch.roofline", "--arch", "internlm2-1.8b", "--shape",
                "decode_32k", "--out", str(tmp_path / "roofline"))
-    assert "coll=—" in out and "dom=memory_s" in out
+    assert "coll=—" not in out and "coll=" in out and "dom=memory_s" in out
 
     table = _run("repro_torch.launch.report", "--dryrun", "--roofline",
                  "--root", str(tmp_path))
     rows = [r for r in table.splitlines() if r.startswith("| internlm2-1.8b")]
     assert len(rows) == 3, table
     assert rows[0].startswith("| internlm2-1.8b | train_4k | multi | ok |")
-    assert rows[0].split(" | ").count("—") == 2 and "(meta)" in rows[0]
+    assert rows[0].split(" | ").count("—") == 1 and "(meta)" in rows[0]
     assert rows[2].startswith("| internlm2-1.8b | decode_32k | baseline |")
-    assert "| — | memory |" in rows[2]
+    assert "—" not in rows[2] and "| memory |" in rows[2]
 
 
 def test_report_placeholder_without_records(tmp_path):
