@@ -11,18 +11,34 @@ line a part, each checked:
    warm-up, as algorithm and bus bandwidth (nccl-tests' definitions:
    all_reduce moves 2 (n-1)/n of its bytes over each link, all_gather
    (n-1)/n of its output).
-2. ``lm``: internlm2-1.8b at full width and depth on {data 2, model 2},
+2. ``coded``: the worker group as it is meant to run -- one nccl rank a
+   card, one coded worker a rank, the counterpart of the reference's
+   ``shard_map`` over N devices: the main path's operands
+   (``chip_smoke.main_operands``: 16384 x 8192 by 16384 x 8192, 8 x 8
+   tiles at 10% density) under a ``sparse_code`` plan of 4 workers, m = 2,
+   n = 1, in five configurations in one launch of the ranks (replicated
+   with 0, 1 and 2 workers dead, ``out_sharded`` -- its ``reduce_scatter``
+   pads the 2 blocks to 4 -- with 0 and 1 dead; the dead drawn as the
+   reference's ``_kill_masks`` draws them).  Each: C within GROUP_RTOL of
+   max|C| of the one-process apply of the same plan and mask on card 0
+   and within 1e-3 of the dense f32 A^T B, one fused-decode launch a rank
+   an apply; every rank's kernel, collective and apply ms, the bytes its
+   collective moved and its card's peak memory.
+3. ``lm``: internlm2-1.8b at full width and depth on {data 2, model 2},
    batch 4 x 512 (the train phase's cell), 5 steps: each rank's step
    times, tokens/s and peak memory; step 0's loss against the one-process
    step on card 0 (within 1e-5 relative).
-3. ``restart``: the CLI at full width, depth cut to 1 layer (the
+4. ``restart``: the CLI at full width, depth cut to 1 layer (the
    checkpoints' size): 4 cards fail at step 8, ``--elastic`` resumes on 2
    cards ({data 1, model 2}) from step 5; the losses against an
    uninterrupted one-process run (within 2e-4; 4 decimals printed).
-4. ``moe``: qwen3-moe-30b-a3b at full width, 4 of 48 layers (the serving
+5. ``moe``: qwen3-moe-30b-a3b at full width, 4 of 48 layers (the serving
    phase's depth), batch 2 x 256, in the MoE forms of chip_smoke.py's
-   ``mesh`` phase, each timed and held as there.
-5. ``families``: rwkv6-3b, llama-3.2-vision-11b and whisper-medium at
+   ``mesh`` phase, each timed and held as there; then the local dispatch
+   with and without the shard_map combine at 3 x 256, a batch the 2 dp
+   shards do not divide (the tokens replicated over "data", each rank
+   slicing its chunk of 384), held the same way.
+6. ``families``: rwkv6-3b, llama-3.2-vision-11b and whisper-medium at
    full width, cut to one layer group (whisper: one decoder and one
    encoder layer), and jamba-1.5-large-398b as chip_smoke.py's
    ``families`` phase runs it -- its Mamba mixer alone at full width, the
@@ -33,15 +49,18 @@ line a part, each checked:
    tokens equal to one process's and the logits within 1e-4 of
    max|logit|; the step's seconds, the prefill's ms, a decode step's ms
    on each rank and each card's peak memory.
-6. ``dryrun``: internlm2-1.8b's train cell at the ``lm`` part's size (4 x
+7. ``dryrun``: internlm2-1.8b's train cell at the ``lm`` part's size (4 x
    512, full depth) and one decode cell a family at ``families``' sizes
    (4 sequences, a cache of 136), each dry-run on a fake {data 2, model 2}
    mesh in a host process of its own (beside the ranks) and run on the
    four cards on arguments made there in the shards' shapes: the
    collectives' counts and bytes, kind by kind, equal to what rank 0
    issues (backward included); the arguments' bytes within 0.5% + 1 MiB
-   of each rank's allocator; the peak estimate printed beside each rank's
-   ``max_memory_allocated``.
+   of each rank's allocator; each rank's ``max_memory_allocated`` within
+   DRY_PEAK_BAND of the peak estimate.  The cards' garbage is collected
+   before each cell's base is read (a train step's graph is freed by
+   Python's cycle collector, and freed inside the next cell's step it
+   would hide that step's peak); the bytes it freed are printed.
 
 ``bandwidth`` also prints the roofline's ``collective_s`` for each
 measured size (``launch.mesh.ICI_BW``, NVLink 4's data sheet rate) beside
@@ -54,6 +73,7 @@ rank-side measurements are ``chip_smoke``'s (``mesh_lm``, ``mesh_forms``,
 from __future__ import annotations
 
 import dataclasses
+import gc
 import json
 import os
 import pathlib
@@ -63,6 +83,7 @@ import sys
 import tempfile
 import time
 
+import numpy as np
 import torch
 
 from chip_smoke import _cli_losses, emit
@@ -78,7 +99,13 @@ MOE_ARCH, MOE_LAYERS, MOE_BATCH, MOE_SEQ = "qwen3-moe-30b-a3b", 4, 2, 256
 RESTART_CLI = ["--arch", "internlm2-1.8b", "--layers", "1", "--steps", "12", "--batch", "2",
                "--seq", "256", "--ckpt-every", "5", "--opt-dtype", "bfloat16"]
 RESTART_FAIL, RESTART_ATOL = 8, 2e-4
-PARTS = ("bandwidth", "lm", "restart", "moe", "families", "dryrun")
+PARTS = ("bandwidth", "coded", "lm", "restart", "moe", "families", "dryrun")
+# coded: a sparse_code plan of one worker a card, m x n blocks
+CODED_M, CODED_N, CODED_REPEATS = 2, 1, 3
+# moe: the local dispatch's two forms on a batch the dp shards do not divide
+MOE_PAD_BATCH = 3
+MOE_PAD_FORMS = {"local": ("moe_local_dispatch",),
+                 "shardmap": ("moe_local_dispatch", "moe_shardmap_combine")}
 # families: each cut to one layer group (whisper also to one encoder layer)
 FAMILIES = {"rwkv6-3b": {}, "llama-3.2-vision-11b": {}, "whisper-medium": {"encoder_layers": 1}}
 FAM_JAMBA = "jamba-1.5-large-398b"
@@ -95,6 +122,9 @@ DRY_CELLS = {
                      "reduced")}
 # the arguments on the card against the dry run's arithmetic, as chip_smoke.py's launch
 DRY_ARG_RTOL, DRY_ARG_SLACK = 5e-3, 1 << 20
+# a card's peak (max_memory_allocated, the arguments included) over the
+# dry run's peak_bytes_est
+DRY_PEAK_BAND = (0.95, 1.05)
 
 
 def check(ok: bool, what: str) -> None:
@@ -237,6 +267,8 @@ def _dry_rank(dev: torch.device, dmesh) -> dict:
             return t
 
         torch.cuda.synchronize(dev)
+        held = torch.cuda.memory_allocated(dev)
+        gc.collect()  # the last cell's cycles go now, not inside this step
         torch.cuda.empty_cache()
         base = torch.cuda.memory_allocated(dev)
         with meshctx.use_mesh(dmesh):
@@ -251,7 +283,7 @@ def _dry_rank(dev: torch.device, dmesh) -> dict:
             seconds = time.perf_counter() - t0
         out[name] = {"card_argument_bytes": grown, "collectives": coll.summary(),
                      "card_peak_bytes": torch.cuda.max_memory_allocated(dev) - base,
-                     "step_s": seconds}
+                     "gc_freed_bytes": held - base, "step_s": seconds}
         del placed, res
         torch.cuda.empty_cache()
     return out
@@ -309,6 +341,8 @@ def _lm_rank(dev: torch.device, dmesh) -> dict:
 
 
 def _moe_rank(dev: torch.device, dmesh) -> dict:
+    """chip_smoke's MoE forms at MOE_BATCH, then the local dispatch's two
+    forms at MOE_PAD_BATCH (rows named "<form> <B>x<S>")."""
     import repro_torch.configs as configs
     from chip_smoke import SEED, mesh_forms
     from repro_torch.models import build
@@ -316,15 +350,107 @@ def _moe_rank(dev: torch.device, dmesh) -> dict:
 
     cfg = dataclasses.replace(configs.get(MOE_ARCH), num_layers=MOE_LAYERS)
     model = build(cfg, dev)
-    batch = SyntheticCorpus(cfg, MOE_BATCH, MOE_SEQ, seed=SEED).make_batch(0)
-    return mesh_forms(dev, dmesh, lambda opts: build(cfg.with_opts(opts), dev),
-                      model.init(SEED), model.specs(), batch)
+    params = model.init(SEED)
+
+    def forms(batch: int, **kw) -> dict:
+        tokens = SyntheticCorpus(cfg, batch, MOE_SEQ, seed=SEED).make_batch(0)
+        return mesh_forms(dev, dmesh, lambda opts: build(cfg.with_opts(opts), dev),
+                          params, model.specs(), tokens, **kw)
+
+    out = forms(MOE_BATCH)
+    pad = forms(MOE_PAD_BATCH, forms=MOE_PAD_FORMS)
+    return {**out, **{f"{form} {MOE_PAD_BATCH}x{MOE_SEQ}": row for form, row in pad.items()}}
 
 
 def _cli(ckpt: str, *extra: str) -> tuple[int, str, float]:
     from chip_smoke import _train_cli
 
     return _train_cli(torch.device("cuda"), ckpt, *extra, base=RESTART_CLI, timeout=TIMEOUT_S)
+
+
+def _kill_masks(plan, dead_counts=(1, 2)) -> dict:
+    """One survivor mask a dead count, drawn as the reference's
+    ``tests/spmd_coded_matmul_check.py::_kill_masks`` draws it: the dead
+    chosen from a generator seeded 0, a draw kept only where the
+    survivors' rows of the code have rank mn."""
+    M = plan.coefficient_matrix()
+    rng = np.random.default_rng(0)
+    masks = {}
+    for n_dead in dead_counts:
+        for _ in range(200):
+            surv = np.ones(plan.num_workers, dtype=bool)
+            surv[rng.choice(plan.num_workers, size=n_dead, replace=False)] = False
+            if np.linalg.matrix_rank(M * surv[:, None]) >= plan.m * plan.n:
+                masks[n_dead] = surv
+                break
+    return masks
+
+
+def _part_coded(smi, seconds: dict) -> None:
+    """``run_group_jobs`` over nccl, one rank a card (module docstring)."""
+    from chip_smoke import BS, E2E_RTOL, GROUP_RTOL, SEED, main_operands
+    from repro_torch.coded import CodedMatmulConfig, plan
+    from repro_torch.runtime import run_group_jobs
+    from repro_torch.sparse import dense_to_block_ell
+
+    dev = torch.device("cuda", 0)
+    A_np, B_np, _ = main_operands()
+    ell = dense_to_block_ell(A_np, BS)
+    cfg = CodedMatmulConfig(scheme="sparse_code", backend="block_sparse", block_size=BS)
+    op = plan(cfg, m=CODED_M, n=CODED_N, num_workers=CARDS, seed=SEED).bind(dev)
+    masks = _kill_masks(op.base_plan)
+    check(sorted(masks) == [1, 2], f"coded: no decodable mask for some dead count: {masks}")
+
+    def named(mask):
+        return "all alive" if mask is None else \
+            f"worker(s) {np.flatnonzero(~mask).tolist()} dead"
+
+    configs = [(False, None), (False, masks[1]), (False, masks[2]), (True, None),
+               (True, masks[1])]
+    # the one-process applies and the dense product on card 0, kept on the host
+    A, B = torch.from_numpy(A_np).to(dev), torch.from_numpy(B_np).to(dev)
+    ref = (A.T @ B).cpu()
+    one = {named(mask): (op if mask is None else op.with_survivors(mask))(
+        A, B, a_sparse=ell).cpu() for mask in (None, masks[1], masks[2])}
+    del A, B
+    torch.cuda.empty_cache()
+    t0 = time.perf_counter()
+    reports = run_group_jobs(A_np, B_np, op.base_plan, backend="nccl", configs=configs,
+                             repeats=CODED_REPEATS, a_sparse=ell, timeout=TIMEOUT_S)
+    seconds["coded_launch"] = wall_s = time.perf_counter() - t0
+    scale = float(ref.abs().max())
+    applies = 1 + CODED_REPEATS  # the warm-up and the timed repeats
+    for (sharded, mask), rep in zip(configs, reports, strict=True):
+        name = f"{'out_sharded' if sharded else 'replicated'}, {named(mask)}"
+        (C,) = rep.blocks
+        check(tuple(C.shape) == tuple(ref.shape), f"coded {name}: C {tuple(C.shape)}")
+        C = C.cpu()
+        check(bool(torch.isfinite(C).all()), f"coded {name}: non-finite C")
+        want = one[named(mask)]
+        vs_one = float((C - want).abs().max()) / float(want.abs().max())
+        vs_dense = float((C - ref).abs().max()) / scale
+        check(vs_one <= GROUP_RTOL, f"coded {name}: {vs_one} of max|C| from the one-process "
+                                    f"apply > {GROUP_RTOL}")
+        check(vs_dense <= E2E_RTOL, f"coded {name}: rel err {vs_dense} > {E2E_RTOL}")
+        stats = rep.decode_stats
+        for rank in stats["ranks"]:
+            got = {k: v for k, v in rank["launches"].items() if v}
+            check(got == {"spmm_block_fused_decode": applies},
+                  f"coded {name}: rank {rank['rank']} launched {got}, want {applies} "
+                  f"fused-decode (one an apply)")
+        emit(part="coded", config=name, ranks=stats["group"], backend=stats["backend"],
+             collective_path=stats["collective_path"], out_sharded=sharded,
+             plan={"scheme": cfg.scheme, "m": CODED_M, "n": CODED_N, "workers": CARDS,
+                   "seed": SEED}, operands=list(A_np.shape) + [B_np.shape[1]],
+             survivors=None if mask is None else mask.tolist(), repeats=CODED_REPEATS,
+             launch_wall_s=wall_s, configs_a_launch=len(configs),
+             apply_ms_slowest_rank=rep.total_time * 1e3,
+             rel_err_vs_one_process=vs_one, rtol_one_process=GROUP_RTOL,
+             rel_err_vs_dense=vs_dense, rtol=E2E_RTOL, nvidia_smi=smi,
+             by_rank=[{k: rank[k] for k in ("rank", "kernel_ms", "collective_ms", "apply_ms",
+                                            "samples", "launches", "collectives",
+                                            "max_memory_allocated", "shard_shape")}
+                      for rank in stats["ranks"]])
 
 
 def _part_lm(group, smi) -> None:
@@ -420,15 +546,23 @@ def _part_dryrun(group, smi, seconds: dict) -> None:
         check(rec["collectives"] == real[0][name]["collectives"],
               f"dryrun {name}: fake mesh {rec['collectives']} vs rank 0 on the cards "
               f"{real[0][name]['collectives']}")
+        lo, hi = DRY_PEAK_BAND
+        for rank, r in enumerate(real):
+            ratio = r[name]["card_peak_bytes"] / ma["peak_bytes_est"]
+            check(lo <= ratio <= hi, f"dryrun {name} rank {rank}: the card's peak "
+                                     f"{r[name]['card_peak_bytes']} is {ratio} of the "
+                                     f"estimate {ma['peak_bytes_est']}, not in {DRY_PEAK_BAND}")
         emit(part="dryrun", cell=name, arch=DRY_CELLS[name][0], shape=DRY_CELLS[name][1],
              mesh=MESH, nvidia_smi=smi, collectives=rec["collectives"],
              collectives_equal=True, meta_s=rec["meta_s"],
              argument_bytes=ma["argument_bytes"], argument_tol=tol,
-             peak_bytes_est=ma["peak_bytes_est"], flops_per_device=rec["cost_analysis"][
-                 "flops_per_device"],
+             peak_bytes_est=ma["peak_bytes_est"], temp_bytes=ma["temp_bytes"],
+             peak_band=DRY_PEAK_BAND,
+             flops_per_device=rec["cost_analysis"]["flops_per_device"],
              by_rank=[{"card_argument_bytes": r[name]["card_argument_bytes"],
                        "card_peak_bytes": r[name]["card_peak_bytes"],
                        "card_peak_over_est": r[name]["card_peak_bytes"] / ma["peak_bytes_est"],
+                       "gc_freed_bytes": r[name]["gc_freed_bytes"],
                        "step_s": r[name]["step_s"]} for r in real])
 
 
@@ -468,10 +602,12 @@ def main() -> int:
             check(row["loss_rel_err"] <= row["rtol"] and row["grad_rel_err"] <= row["grad_rtol"],
                   f"moe {form}: {row}")
         emit(part="moe", arch=MOE_ARCH, layers=MOE_LAYERS, batch=MOE_BATCH, seq=MOE_SEQ,
-             mesh=MESH, forms=moe[0], fwd_bwd_ms_by_rank={
+             pad_batch=MOE_PAD_BATCH, mesh=MESH, nvidia_smi=smi, forms=moe[0],
+             fwd_bwd_ms_by_rank={
                  form: [r[form]["fwd_bwd_ms"] for r in moe] for form in moe[0]})
 
-    run = {"bandwidth": part_bandwidth, "lm": lambda: _part_lm(group, smi),
+    run = {"bandwidth": part_bandwidth, "coded": lambda: _part_coded(smi, seconds),
+           "lm": lambda: _part_lm(group, smi),
            "restart": _part_restart, "moe": part_moe,
            "families": lambda: _part_families(group, smi),
            "dryrun": lambda: _part_dryrun(group, smi, seconds)}

@@ -642,6 +642,16 @@ def sparse_candidates(make_bsr, dense_b: torch.Tensor) -> dict:
             "torch.sparse_csr_tensor @ B": csr_call}
 
 
+def main_operands() -> tuple[np.ndarray, np.ndarray, np.ndarray]:
+    """The main path's operands, drawn from SEED: A (S, R) f32 with DENSITY
+    of its BS x BS tiles nonzero, B (S, T) f32, and A's tile mask."""
+    rng = np.random.default_rng(SEED)
+    mask = rng.random((S // BS, R // BS)) < DENSITY
+    A_np = (rng.standard_normal((S // BS, BS, R // BS, BS), dtype=np.float32)
+            * mask[:, None, :, None]).reshape(S, R)
+    return A_np, rng.standard_normal((S, T), dtype=np.float32), mask
+
+
 def phase_main(built: dict) -> tuple[list[dict], dict]:
     """The main path at full size; its kernels' rows, and the operands the
     entry-point phase reuses."""
@@ -653,12 +663,9 @@ def phase_main(built: dict) -> tuple[list[dict], dict]:
     from repro_torch.sparse import dense_to_block_ell
 
     dev = torch.device("cuda", 0)
-    rng = np.random.default_rng(SEED)
     t0 = time.perf_counter()
-    mask = rng.random((S // BS, R // BS)) < DENSITY
-    A_np = (rng.standard_normal((S // BS, BS, R // BS, BS), dtype=np.float32)
-            * mask[:, None, :, None]).reshape(S, R)
-    B = torch.from_numpy(rng.standard_normal((S, T), dtype=np.float32)).to(dev)
+    A_np, B_np, mask = main_operands()
+    B = torch.from_numpy(B_np).to(dev)
     A = torch.from_numpy(A_np).to(dev)
     ell = dense_to_block_ell(A_np, BS)
     data_s = time.perf_counter() - t0
@@ -2847,8 +2854,8 @@ class _MoEBlock:
 
 
 def mesh_forms(dev: torch.device, dmesh, block_of, params: dict, specs: dict,
-               batch: dict) -> dict:
-    """The MoE forms (``MESH_MOE_FORMS``, in order) of a model forward and
+               batch: dict, forms: dict = MESH_MOE_FORMS) -> dict:
+    """The MoE forms (``forms``, in order) of a model forward and
     backward on the mesh: local dispatch and the coded FFN against one
     process on rank 0's card (under the mesh's shape as a dict, which sets
     the dp-local dispatch's chunks), the shard_map combine against local
@@ -2864,7 +2871,7 @@ def mesh_forms(dev: torch.device, dmesh, block_of, params: dict, specs: dict,
 
     rank0 = dmesh.get_rank() == 0
     out, local = {}, None
-    for form, opts in MESH_MOE_FORMS.items():
+    for form, opts in forms.items():
         block = block_of(opts)
         want = None
         if form == "shardmap":

@@ -171,12 +171,16 @@ def zeros(shape: tuple, dtype, device, axes: tuple):
 
 def maybe_shard(x, *axes):
     """``x`` redistributed to ``spec(*axes)`` when a ``DeviceMesh`` is active
-    and ``x`` is a DTensor; else ``x`` itself."""
+    and ``x`` is a DTensor; else ``x`` itself.  A dim placed over "dp" that
+    the dp shards do not divide (a batch of 3 on 2 shards) is replicated
+    over them, as ``fit`` places it: the reference's GSPMD pads it
+    instead, to the same values."""
     from torch.distributed.tensor import DTensor
 
     mesh = device_mesh()
     if mesh is None or not isinstance(x, DTensor):
         return x
+    axes = tuple(fit(x.shape[i], a) if a == "dp" else a for i, a in enumerate(axes))
     want = placements(spec(*axes), mesh)
     if tuple(x.placements) == tuple(want):
         return x

@@ -9,7 +9,8 @@ or the encoder's output.
 
 Under a ``DeviceMesh`` the projections put their head axis over "model"
 where the head count divides among the model shards, and replicate it
-otherwise (the reference's GQA-TP rule), with the batch over "dp"; each
+otherwise (the reference's GQA-TP rule), with the batch over "dp" where
+it divides among the dp shards (else replicated over them); each
 rank attends over its own batch and heads (``local_map``), and the output
 is placed ("dp", None, None), for self- and cross-attention alike.
 
@@ -148,7 +149,7 @@ def self_attention(x: torch.Tensor, p: dict, cfg, positions: torch.Tensor, *,
     # "model" where both head counts divide among the model shards, so a
     # query shard reads its own K/V shard, else replicated
     both = _head_axis(cfg.num_heads) if _head_axis(cfg.num_kv_heads) else None
-    qkv = ("dp", None, both)
+    qkv = (meshctx.fit(B, "dp"), None, both)
     out = meshctx.local(functools.partial(_attend, cfg=cfg, causal=causal),
                         (qkv, qkv, qkv, None), (qkv,))(q, k, v, positions)
     return maybe_shard(_mm(out, p["wo"]), "dp", None, None)
@@ -336,7 +337,7 @@ def cross_attention(x: torch.Tensor, memory: torch.Tensor | None, p: dict, cfg, 
                for t, n, h in ((x, "q", cfg.num_heads), (memory, "k", cfg.num_kv_heads),
                                (memory, "v", cfg.num_kv_heads)))
     both = _head_axis(cfg.num_heads) if _head_axis(cfg.num_kv_heads) else None
-    qkv = ("dp", None, both)
+    qkv = (meshctx.fit(B, "dp"), None, both)
     out = meshctx.local(functools.partial(_attend_memory, cfg=cfg),
                         (qkv, qkv, qkv), (qkv,))(q, k, v)
     k, v = _split_heads(k, cfg), _split_heads(v, cfg)

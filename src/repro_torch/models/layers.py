@@ -136,8 +136,11 @@ def apply_rope(x: torch.Tensor, positions: torch.Tensor, theta: float) -> torch.
     return out.to(x.dtype)
 
 
-def sinusoidal_positions(seq: int, d: int, device=None) -> torch.Tensor:
-    pos = torch.arange(seq, dtype=torch.float32, device=device)[:, None]
+def sinusoidal_positions(seq: int, d: int, device=None, start: int = 0) -> torch.Tensor:
+    """Rows ``start`` .. ``start + seq`` of the (max_seq, d) sinusoidal table
+    (each row depends on its position alone, so a slice of the table is
+    made without the table)."""
+    pos = torch.arange(start, start + seq, dtype=torch.float32, device=device)[:, None]
     dim = torch.arange(0, d, 2, dtype=torch.float32, device=device)[None, :]
     angle = pos / torch.pow(torch.tensor(10_000.0, device=device), dim / d)
     pe = torch.zeros((seq, d), dtype=torch.float32, device=device)

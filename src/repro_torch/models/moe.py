@@ -19,13 +19,14 @@ Under a ``DeviceMesh`` (``launch.meshctx``) the experts are sharded over
 "model" (expert parallel), as are the coded workers' outputs.  The global
 dispatch routes the tokens replicated over the mesh (where the reference's
 GSPMD replicates the sort and scatter); the dp-chunk-local dispatch
-(``opt_moe_local_dispatch``) cuts the tokens into one chunk per dp shard
-(``_dp_chunks``) and each rank routes and packs its own, in
-``local_map``.  Its combine gathers the experts' rows back to the tokens,
-or with ``opt_moe_shardmap_combine`` the reference's ``shard_map``: each
-rank gathers only its own experts' rows into an f32 partial and one bf16
-``all_reduce`` over "model" sums them.  With no mesh and one chunk every
-call here is the one-card path.
+(``opt_moe_local_dispatch``) cuts the flat tokens into one chunk per dp
+shard (``_dp_chunks``: fewer where the tokens do not divide so) and each
+rank routes and packs its own, in ``local_map``, whether or not the
+batch divides among the dp shards.  Its combine gathers the experts'
+rows back to the tokens, or with ``opt_moe_shardmap_combine`` the
+reference's ``shard_map``: each rank gathers only its own experts' rows
+into an f32 partial and one bf16 ``all_reduce`` over "model" sums them.
+With no mesh and one chunk every call here is the one-card path.
 """
 
 from __future__ import annotations
@@ -199,7 +200,7 @@ def _experts(buf: torch.Tensor, p: dict, cfg, coded: bool, lead: tuple) -> torch
         out_buf = _coded_expert_mm(h, p["w_down"], cfg)
     else:
         ex, w = lead + ("model", None, None), ("model", None, None)
-        summed = {i: ("pod", "data") for i in (1, 2, 3)} if lead else None
+        summed = {i: ("pod", "data") for i in (1, 2, 3)} if any(lead) else None
         out_buf = local(_ffn, (ex, w, w, w), (ex,), grad_partial=summed)(
             buf, p["w_gate"], p["w_up"], p["w_down"])
     return maybe_shard(out_buf, *lead, "model", None, None)
@@ -255,13 +256,19 @@ def _dp_chunks(T: int) -> int:
 
 
 def moe_apply_local(x: torch.Tensor, p: dict, cfg):
-    """dp-chunk-local dispatch (``opt_moe_local_dispatch``): the tokens in
-    X = ``_dp_chunks(T)`` chunks, each routed and packed into its own
-    (E, Cl, d) buffer with capacity Cl from its Tl = T / X tokens.  Under
-    a ``DeviceMesh`` each rank routes its own dp shard's chunks in
+    """dp-chunk-local dispatch (``opt_moe_local_dispatch``): the flat (B S)
+    tokens in X = ``_dp_chunks(T)`` chunks of Tl = T / X consecutive
+    tokens, each routed and packed into its own (E, Cl, d) buffer with
+    capacity Cl from its Tl tokens.  Under a ``DeviceMesh`` the chunk axis
+    is placed over "dp" where X is the dp degree (else replicated: each
+    rank routes every chunk) and each rank routes its own chunks in
     ``local_map`` (tokens are replicated over "model", so the buffer placed
-    ("dp", "model", ...) is a local slice: no dispatch collective).  With
-    one chunk and no ``DeviceMesh`` it is the global dispatch, uncoded."""
+    ("dp", "model", ...) is a local slice).  Where the batch divides among
+    the dp shards, a shard's chunk is its own batch rows: no dispatch
+    collective.  Else the tokens are replicated over "dp" (``maybe_shard``)
+    and each rank slices its chunks from them; the combined chunks are
+    gathered back into the batch.  With one chunk and no ``DeviceMesh`` it
+    is the global dispatch, uncoded."""
     B, S, d = x.shape
     E, k = cfg.moe.num_experts, cfg.moe.top_k
     T = B * S
@@ -275,23 +282,27 @@ def moe_apply_local(x: torch.Tensor, p: dict, cfg):
         outs = [_route(xc, router, E, k, Cl) for xc in xt]
         return tuple(torch.stack(o) for o in zip(*outs, strict=True))
 
-    dp3, dp2 = ("dp", None, None), ("dp", None)
-    if meshctx.device_mesh() is not None and B % meshctx.dp_size():
-        raise ValueError(f"the local dispatch on a mesh needs the batch ({B}) to divide "
-                         f"among its {meshctx.dp_size()} dp shards")
-    # (B, S) tokens <-> (X, Tl) chunks on each rank's own rows: the chunks
-    # of a dp shard are its batch rows (DTensor's view rules misplace the
-    # gradient of this reshape across sharded dims).  The router's gradient
-    # sums over the dp shards' chunks.
+    cax = meshctx.fit(X, "dp")
+    dp3, dp2 = (cax, None, None), (cax, None)
+    rows = meshctx.fit(B, "dp") is not None
+    if rows:
+        # (B, S) tokens -> (X, Tl) chunks on each rank's own rows: the
+        # chunk of a dp shard is its batch rows (DTensor's view rules
+        # misplace the gradient of this reshape across sharded dims)
+        xt = local(lambda t: t.reshape(-1, Tl, d), (dp3,), (dp3,))(x)
+    else:
+        xt = maybe_shard(x, None, None, None).reshape(X, Tl, d)
+    # the router's gradient sums over the dp shards' chunks
     buf, se, st, pos, sg, probs, first = local(
         route_chunks, (dp3, ()), (dp3 + (None,), dp2, dp2, dp2, dp2, dp3, dp3),
-        grad_partial={1: ("pod", "data")})(
-        local(lambda t: t.reshape(-1, Tl, d), (dp3,), (dp3,))(x), p["router"])
+        grad_partial={1: ("pod", "data")} if cax else None)(xt, p["router"])
     aux = _aux(probs, first, E)
-    buf = maybe_shard(buf, "dp", "model", None, None)         # a local slice
-    out_buf = _experts(buf, p, cfg, False, ("dp",))
-    out = maybe_shard(_combine(out_buf, se, st, pos, sg, Tl, E, cfg), "dp", None, None)
-    return local(lambda t: t.reshape(-1, S, d), (dp3,), (dp3,))(out), aux
+    buf = maybe_shard(buf, cax, "model", None, None)         # a local slice
+    out_buf = _experts(buf, p, cfg, False, (cax,))
+    out = _combine(out_buf, se, st, pos, sg, Tl, E, cfg)
+    if rows:
+        return local(lambda t: t.reshape(-1, S, d), (dp3,), (dp3,))(out), aux
+    return maybe_shard(out, None, None, None).reshape(B, S, d), aux
 
 
 class _SumOverModel(torch.autograd.Function):
@@ -328,7 +339,8 @@ def _combine(out_buf, se, st, pos, sg, Tl: int, E: int, cfg) -> torch.Tensor:
     mesh = meshctx.device_mesh()
     X = out_buf.shape[0]
     tp = meshctx.axis_size("model")
-    dp4, dp2 = ("dp", None, None, None), ("dp", None)
+    cax = meshctx.fit(X, "dp")
+    dp4, dp2 = (cax, None, None, None), (cax, None)
     use_shardmap = (cfg.opt_moe_shardmap_combine and mesh is not None
                     and "model" in mesh.mesh_dim_names and E % tp == 0
                     and X == meshctx.dp_size())
@@ -336,7 +348,7 @@ def _combine(out_buf, se, st, pos, sg, Tl: int, E: int, cfg) -> torch.Tensor:
         def unpack_chunks(ob, se_, st_, pos_, sg_):
             return torch.stack([_unpack(*c, T=Tl) for c in zip(ob, se_, st_, pos_, sg_,
                                                                  strict=True)])
-        return local(unpack_chunks, (dp4,) + (dp2,) * 4, (("dp", None, None),))(
+        return local(unpack_chunks, (dp4,) + (dp2,) * 4, ((cax, None, None),))(
             out_buf, se, st, pos, sg)
 
     E_loc = E // tp

@@ -169,7 +169,6 @@ class Model:
         self.cfg = cfg
         self.device = device
         self.plan = self._plan()
-        self._pe = None
 
     def _plan(self):
         plan = self.cfg.layer_plan()
@@ -478,21 +477,20 @@ class Model:
         if meshctx.device_mesh() is None:
             return table[tokens.long()]
         if not torch.is_grad_enabled():  # each rank's own rows of ids first
-            tokens = maybe_shard(tokens, meshctx.fit(tokens.shape[0], "dp"), None)
+            tokens = maybe_shard(tokens, "dp", None)
             return torch.nn.functional.embedding(tokens.long(), table)
         return table[maybe_shard(tokens, None, None).long()]
 
     def _positional(self, x: torch.Tensor, pos0: int) -> torch.Tensor:
         """The sinusoidal table's rows pos0..pos0+S added to x (models
-        without RoPE); the table is made once per model."""
+        without RoPE), made alone: a step never holds the (max_seq, d)
+        table."""
         S = x.shape[1]
         if pos0 + S > self.cfg.max_seq:
             raise ValueError(f"positions {pos0}..{pos0 + S - 1} run past "
                              f"max_seq {self.cfg.max_seq}")
-        if self._pe is None:
-            self._pe = sinusoidal_positions(self.cfg.max_seq, self.cfg.d_model,
-                                            self.device)
-        return x + self._pe[pos0:pos0 + S].to(x.dtype)[None]
+        pe = sinusoidal_positions(S, self.cfg.d_model, self.device, start=pos0)
+        return x + pe.to(x.dtype)[None]
 
     def forward(self, params: dict, tokens: torch.Tensor, *, extras=None,
                 cache: dict | None = None):

@@ -1063,6 +1063,7 @@ def _group_job_config(device, group, plan, cfg, survivors, repeats, A, B, kw, C_
     from repro_torch.coded import from_plan
     from repro_torch.core.coded_matmul import STAGE_MARK, gather_blocks
     from repro_torch.kernels import coded_accum, spmm_block
+    from repro_torch.launch.meshctx import Collectives
 
     def launch_counts():
         return {**spmm_block.LAUNCHES, **coded_accum.LAUNCHES}
@@ -1083,7 +1084,8 @@ def _group_job_config(device, group, plan, cfg, survivors, repeats, A, B, kw, C_
     if survivors is not None:
         op = op.with_survivors(survivors)
     before = launch_counts()
-    out = op.apply(A, B, **kw)  # warm-up: the device pack is made here
+    with Collectives() as coll:  # the warm-up: the device pack is made here
+        out = op.apply(A, B, **kw)
     synchronize(device)
     times = {"kernel_ms": [], "collective_ms": [], "apply_ms": []}
     for _ in range(max(1, repeats)):
@@ -1107,7 +1109,7 @@ def _group_job_config(device, group, plan, cfg, survivors, repeats, A, B, kw, C_
         C_out.copy_(C.to("cpu", torch.float32))
     return {"rank": dist.get_rank(group), "shard_shape": list(out.shape),
             **{k: float(np.median(v)) for k, v in times.items()},
-            "samples": times, "launches": launches,
+            "samples": times, "launches": launches, "collectives": coll.summary(),
             "max_memory_allocated": (torch.cuda.max_memory_allocated(device)
                                      if cuda else None)}
 
@@ -1137,7 +1139,9 @@ def run_group_job(
     ``repeats`` timed ones, their starts aligned by a barrier: its
     ``kernel_ms`` (the local product), ``collective_ms`` (from its end to
     the collective's) and ``apply_ms`` (the whole apply), each the median,
-    timed with CUDA events on the card (``decode_stats["ranks"]``).  The
+    timed with CUDA events on the card (``decode_stats["ranks"]``), and
+    the collectives of its warm-up apply (``meshctx.Collectives``: the
+    bytes of an all-reduce's tensor, of a reduce-scatter's shard).  The
     report's time is the slowest rank's median apply.  ``blocks`` holds C
     on ``device``: rank 0's replicated C, or for ``out_sharded`` the shards
     gathered (``gather_blocks``).  ``survivors`` is applied on every rank,

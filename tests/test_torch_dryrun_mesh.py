@@ -22,7 +22,12 @@ capture.  Held:
   its ``collective_s`` is them over ``launch.mesh.ICI_BW``;
 * ``opt_remat_save_tp``: a train cell issues fewer all-reduce bytes than
   plain remat (fake run and gloo run alike), with the same loss and
-  gradients (gloo run, within RTOL / GRAD_RTOL).
+  gradients (gloo run, within RTOL / GRAD_RTOL);
+* a model without RoPE adds the sinusoidal rows of its step's positions
+  alone (``LiveBytes``: no (max_seq, d) table, which each step used to
+  make, 671 MB with its temporaries at rwkv6-3b's width), so the rwkv6-3b
+  decode cell's ``temp_bytes`` on the fake {data 2, model 2} mesh is below
+  one such table.
 """
 
 from __future__ import annotations
@@ -215,3 +220,29 @@ def test_roofline_collective_term_is_the_references_formula(shapes):
     assert got["per_device"]["coll_bytes"] == want
     assert got["terms"]["collective_s"] == want / ICI_BW
     assert got["dominant"] == max(got["terms"], key=got["terms"].get)
+
+
+def test_positional_rows_are_made_without_the_table():
+    """``Model._positional`` of one decode position late in the sequence:
+    its allocations (``LiveBytes``) hold the row and the sum, never the
+    (max_seq, d) table, and its values are the table's rows."""
+    from repro_torch.models.layers import sinusoidal_positions
+
+    cfg = _cfg("rwkv6-3b")
+    model = tbuild(cfg, "cpu")
+    x = torch.zeros(2, 1, cfg.d_model)
+    with dryrun.LiveBytes() as live:
+        y = model._positional(x, cfg.max_seq - 1)
+    table = cfg.max_seq * cfg.d_model * 4
+    assert 0 < live.peak <= 8 * cfg.d_model * 4 < table, (live.peak, table)
+    want = sinusoidal_positions(cfg.max_seq, cfg.d_model)[-1]
+    assert torch.equal(y[0, 0], want) and torch.equal(y[1, 0], want)
+
+
+def test_rwkv_decode_cell_temp_holds_no_positional_table(monkeypatch):
+    cfg = _cfg("rwkv6-3b")
+    monkeypatch.setitem(dryrun.SHAPES, "rwkv_decode", dict(seq=32, batch=4, kind="decode"))
+    rec = dryrun.run_cell("rwkv6-3b", "rwkv_decode", False, cfg_override=cfg, mesh=MESH,
+                          probes=False)
+    temp = rec["memory_analysis"]["temp_bytes"]
+    assert 0 < temp < cfg.max_seq * cfg.d_model * 4, temp

@@ -6,7 +6,9 @@ gradients on {data 2, model 2} with and without ``opt_seq_parallel`` and
 with ``opt_fused_ce``, three steps of ``launch/train.py``'s sharded step
 (in and out shardings from ``Model.specs()``), the reduced qwen3-moe on
 (2, 2) in its global, coded, dp-local and shard_map-combine forms and on
-(2, 4) as ``spmd_moe_combine_check.py`` runs it, internlm2 on (2, 4)
+(2, 4) as ``spmd_moe_combine_check.py`` runs it, its two local forms on
+batches the dp shards do not divide (3 x 16 and 3 x 5 on (2, 2), 2 x 16
+on (4, 2), 1 x 16 on (2, 4): GSPMD pads them), internlm2 on (2, 4)
 (its 2 K/V heads do not divide among 4 model shards: replicated), each
 parameter's ``NamedSharding.shard_shape``, and the reference's
 initial parameters.
@@ -14,7 +16,8 @@ initial parameters.
 Two gloo groups on ``device="cpu"`` (``runtime.workergroup.spawn_group``,
 one launch each, session fixtures) run the port on those parameters
 (``models.convert.params_from_numpy``, then ``meshctx.distribute``): 4
-ranks on {data 2, model 2}, 8 on {data 2, model 4}.  Held:
+ranks on {data 2, model 2}, 8 on {data 2, model 4} and, over the same 8
+ranks, {data 4, model 2}.  Held:
 
 * loss and every gradient against the reference on the same mesh and
   against the one-process port: RTOL = 1e-5 of the loss, GRAD_RTOL =
@@ -67,6 +70,7 @@ LAUNCH_TIMEOUT_S = 240.0
 ARCHS = ("internlm2-1.8b", "qwen3-moe-30b-a3b")
 MOE = "qwen3-moe-30b-a3b"
 
+LOCAL, SHARDMAP = ("moe_local_dispatch",), ("moe_local_dispatch", "moe_shardmap_combine")
 # name -> (arch, opts, mesh (data, model))
 CASES = {
     "lm": ("internlm2-1.8b", (), (2, 2)),
@@ -80,7 +84,28 @@ CASES = {
     "moe_local_tp4": (MOE, ("moe_local_dispatch",), (2, 4)),
     "moe_shardmap_tp4": (MOE, ("moe_local_dispatch", "moe_shardmap_combine"), (2, 4)),
 }
-BF16_COMBINE = {"moe_shardmap", "moe_shardmap_tp4"}
+# the dp pad: the local dispatch on batches (B, S) that the dp shards do
+# not divide; T = B * S in X = _dp_chunks(T) chunks (3 x 5: one chunk, so
+# no shard_map combine, as in the reference)
+PAD_BATCH = {"pad3x16": ((2, 2), (3, 16)), "pad3x5": ((2, 2), (3, 5)),
+             "pad2x16_dp4": ((4, 2), (2, 16)), "pad1x16_tp4": ((2, 4), (1, 16))}
+CASES.update({f"moe_{form}_{pad}": (MOE, opts, mesh) for pad, (mesh, _) in PAD_BATCH.items()
+              for form, opts in (("local", LOCAL), ("shardmap", SHARDMAP))})
+BF16_COMBINE = {"moe_shardmap", "moe_shardmap_tp4"} | {
+    f"moe_shardmap_{pad}" for pad in PAD_BATCH if pad != "pad3x5"}
+# a fault of the reference, not mirrored: on 3 x 5 and 1 x 16 its sharded
+# run gives the embedding's gradient NaN (GSPMD's padded batch rows), its
+# loss right; these cases' gradients are held to its one-device run of the
+# same config with its ``_dp_chunks`` fixed to the mesh's chunk count (the
+# same chunks, routes and capacities; the combine in f32)
+REF_NAN_GRADS = {f"moe_{form}_{pad}" for form in ("local", "shardmap")
+                 for pad in ("pad3x5", "pad1x16_tp4")}
+
+
+def _shape(name: str) -> tuple[int, int]:
+    """The case's batch (B, S)."""
+    pad = name.removeprefix("moe_local_").removeprefix("moe_shardmap_")
+    return PAD_BATCH[pad][1] if pad in PAD_BATCH else (B, S)
 
 
 def _limits(name: str) -> tuple[float, float]:
@@ -107,7 +132,7 @@ from repro.training.optimizer import AdamW, cosine_warmup_schedule
 from repro.training.train_step import make_train_step
 
 cases, archs, B, S, steps = json.loads(sys.argv[2])
-out = {}
+out, ones = {}, {}
 
 
 def mesh_of(shape):
@@ -120,8 +145,8 @@ def put(prefix, tree):
         out[f"{prefix}/{i}"] = np.asarray(leaf)
 
 
-def batch_of(cfg, step):
-    return {k: jnp.asarray(v) for k, v in SyntheticCorpus(cfg, B, S, seed=0).make_batch(step).items()}
+def batch_of(cfg, step, b=B, s=S):
+    return {k: jnp.asarray(v) for k, v in SyntheticCorpus(cfg, b, s, seed=0).make_batch(step).items()}
 
 
 mesh22 = mesh_of((2, 2))
@@ -135,16 +160,30 @@ for arch in archs:
                                   jax.tree.leaves(model.shapes()))]
     out[f"shard_shapes/{arch}"] = np.asarray(json.dumps(shapes))
 
-for name, (arch, opts, shape) in cases.items():
+for name, (arch, opts, shape, (b, s), one) in cases.items():
     cfg = configs.get(arch).reduced()
     if opts:
         cfg = cfg.with_opts(tuple(opts))
     model = build(cfg)
     params = model.init(jax.random.key(0), jnp.float32)
     with meshctx.use_mesh(mesh_of(shape)):
-        loss, grads = jax.jit(jax.value_and_grad(model.loss))(params, batch_of(cfg, 0))
+        loss, grads = jax.jit(jax.value_and_grad(model.loss))(params, batch_of(cfg, 0, b, s))
     out[f"{name}/loss"] = np.asarray(loss)
     put(f"{name}/grad", grads)
+    if one:  # one device, the mesh's chunks
+        import repro.models.moe as rmoe
+        with meshctx.use_mesh(mesh_of(shape)):
+            chunks = rmoe._dp_chunks(b * s)
+        if (b, s, chunks) not in ones:  # the shard_map combine needs a mesh: one run serves both
+            dp_chunks, rmoe._dp_chunks = rmoe._dp_chunks, lambda T: chunks
+            try:
+                ones[b, s, chunks] = jax.jit(jax.value_and_grad(model.loss))(
+                    params, batch_of(cfg, 0, b, s))
+            finally:
+                rmoe._dp_chunks = dp_chunks
+        loss, grads = ones[b, s, chunks]
+        out[f"{name}/one/loss"] = np.asarray(loss)
+        put(f"{name}/one/grad", grads)
 
 # launch/train.py's sharded step, 3 steps on (2, 2)
 cfg = configs.get("internlm2-1.8b").reduced()
@@ -169,15 +208,30 @@ np.savez(sys.argv[1], **out)
 
 @pytest.fixture(scope="session")
 def reference(tmp_path_factory) -> dict:
-    path = tmp_path_factory.mktemp("mesh_ref") / "ref.npz"
+    """The reference's records from two subprocesses run at once: the dp
+    pad's cases in one, the rest (the initial parameters, shard shapes and
+    train steps too) in the other."""
+    tmp = tmp_path_factory.mktemp("mesh_ref")
     env = dict(os.environ, PYTHONPATH=str(ROOT / "src"), JAX_PLATFORMS="cpu")
-    spec = json.dumps([{k: [a, list(o), list(m)] for k, (a, o, m) in CASES.items()},
-                       list(ARCHS), B, S, TRAIN_STEPS])
-    proc = subprocess.run([sys.executable, "-c", _JAX_SCRIPT, str(path), spec],
-                          env=env, capture_output=True, text=True, timeout=600)
-    assert proc.returncode == 0, proc.stderr[-4000:]
-    with np.load(path) as z:
-        return {k: z[k] for k in z.files}
+    pads = [k for k in CASES if _shape(k) != (B, S)]
+    jobs = {"main": ([k for k in CASES if k not in pads], ARCHS, TRAIN_STEPS),
+            "pad": (pads, (), 0)}
+    procs = {}
+    for tag, (names, archs, steps) in jobs.items():
+        spec = json.dumps([{k: [*CASES[k][:2], list(CASES[k][2]), list(_shape(k)),
+                                k in REF_NAN_GRADS] for k in names},
+                           list(archs), B, S, steps])
+        procs[tag] = subprocess.Popen([sys.executable, "-c", _JAX_SCRIPT,
+                                       str(tmp / f"{tag}.npz"), spec], env=env,
+                                      stdout=subprocess.DEVNULL, stderr=subprocess.PIPE,
+                                      text=True)
+    out = {}
+    for tag, proc in procs.items():
+        _, err = proc.communicate(timeout=600)
+        assert proc.returncode == 0, err[-4000:]
+        with np.load(tmp / f"{tag}.npz") as z:
+            out.update({k: z[k] for k in z.files})
+    return out
 
 
 def _cfg(name: str):
@@ -193,8 +247,8 @@ def _init(model, ref: dict, arch: str) -> dict:
     return params_from_numpy(model, tree_unflatten(model.shapes(), arrays))
 
 
-def _batch(cfg, step: int = 0) -> dict:
-    return SyntheticCorpus(cfg, B, S, seed=0).make_batch(step)
+def _batch(cfg, step: int = 0, shape: tuple[int, int] = (B, S)) -> dict:
+    return SyntheticCorpus(cfg, *shape, seed=0).make_batch(step)
 
 
 # ------------------------------- in the ranks ---------------------------------
@@ -236,14 +290,17 @@ def _numpy(t) -> np.ndarray:
 
 
 def _mesh_rank(device, dmesh, ref: dict, names: list, train: bool, ckpt_dir: str):
-    """Loss and gradients of each case on this group's mesh, each
-    parameter's local shard shape, the sharded train step's metrics, and a
-    checkpoint written on the mesh.  Returns numpy only."""
+    """Loss and gradients of each case on its mesh (this group's, or
+    another over the same ranks), each parameter's local shard shape, the
+    sharded train step's metrics, and a checkpoint written on the mesh.
+    Returns numpy only."""
+    from repro_torch.launch.mesh import device_mesh
     from repro_torch.training.optimizer import AdamW, cosine_warmup_schedule
     from repro_torch.training.train_step import make_train_step
 
     out = {"shapes": {}, "cases": {}}
     meshctx.set_mesh(dmesh)
+    meshes = {tuple(meshctx.mesh_shape(dmesh).values()): dmesh}
     for arch in ARCHS:
         model = tbuild(tcfg.get(arch).reduced(), device)
         params = meshctx.distribute(_init(model, ref, arch), model.specs(), dmesh)
@@ -251,8 +308,14 @@ def _mesh_rank(device, dmesh, ref: dict, names: list, train: bool, ckpt_dir: str
     for name in names:
         cfg = _cfg(name)
         model = tbuild(cfg, device)
-        params = meshctx.distribute(_init(model, ref, CASES[name][0]), model.specs(), dmesh)
-        loss, grads = value_and_grad(model, params, distribute_batch(_batch(cfg), dmesh, device))
+        data, tp = CASES[name][2]
+        if (data, tp) not in meshes:
+            meshes[data, tp] = device_mesh({"data": data, "model": tp}, device.type)
+        mesh = meshes[data, tp]
+        params = meshctx.distribute(_init(model, ref, CASES[name][0]), model.specs(), mesh)
+        with meshctx.use_mesh(mesh):
+            loss, grads = value_and_grad(model, params, distribute_batch(
+                _batch(cfg, shape=_shape(name)), mesh, device))
         out["cases"][name] = (float(loss), [_numpy(g) for g in tree_leaves(grads)],
                               [str(g.placements) == str(p.placements)
                                for g, p in zip(tree_leaves(grads), tree_leaves(params))])
@@ -281,8 +344,8 @@ def _mesh_rank(device, dmesh, ref: dict, names: list, train: bool, ckpt_dir: str
 
 
 def _launch(ref, mesh: dict, train: bool, ckpt_dir: str):
-    names = [n for n, (_, _, m) in CASES.items() if m == tuple(mesh.values())]
     world = int(np.prod(list(mesh.values())))
+    names = [n for n, (_, _, m) in CASES.items() if int(np.prod(m)) == world]
     outs = workergroup.spawn_group(_mesh_rank, world, backend="gloo", device="cpu",
                                    timeout=LAUNCH_TIMEOUT_S, mesh=mesh,
                                    args=(ref, names, train, ckpt_dir))
@@ -307,7 +370,8 @@ def _one_process(name: str, ref: dict):
     model = tbuild(cfg, "cpu")
     data, tp = CASES[name][2]
     with meshctx.use_mesh({"data": data, "model": tp}):
-        loss, grads = value_and_grad(model, _init(model, ref, CASES[name][0]), _batch(cfg))
+        loss, grads = value_and_grad(model, _init(model, ref, CASES[name][0]),
+                                     _batch(cfg, shape=_shape(name)))
     return float(loss), [g.numpy() for g in tree_leaves(grads)]
 
 
@@ -328,7 +392,8 @@ def _ranks(name, ranks22, ranks24):
 
 def _want(ref: dict, name: str):
     n = len([k for k in ref if k.startswith(f"{name}/grad/")])
-    return float(ref[f"{name}/loss"]), [ref[f"{name}/grad/{i}"] for i in range(n)]
+    grads = f"{name}/one/grad" if name in REF_NAN_GRADS else f"{name}/grad"
+    return float(ref[f"{name}/loss"]), [ref[f"{grads}/{i}"] for i in range(n)]
 
 
 # --------------------------------- tests --------------------------------------
@@ -351,6 +416,21 @@ def test_sharded_loss_and_grads_match_one_process(name, reference, ranks22, rank
         rtol, grad_rtol = COMBINE_RTOL, COMBINE_GRAD_RTOL
     loss, grads, _ = _ranks(name, ranks22, ranks24)[0]["cases"][name]
     _held((loss, grads), _one_process(name, reference), rtol, grad_rtol, name)
+
+
+@pytest.mark.parametrize("name", sorted(REF_NAN_GRADS))
+def test_reference_pad_fault_is_not_mirrored(name, reference, ranks22, ranks24):
+    """The reference's sharded gradients are NaN in the embedding alone and
+    its loss is its one-device loss on the same chunks; the port's
+    gradients are finite (held to the one-device values by the tests
+    above)."""
+    n = len([k for k in reference if k.startswith(f"{name}/grad/")])
+    nan = [bool(np.isnan(reference[f"{name}/grad/{i}"]).any()) for i in range(n)]
+    assert nan == [True] + [False] * (n - 1), (name, nan)
+    loss, one = float(reference[f"{name}/loss"]), float(reference[f"{name}/one/loss"])
+    assert abs(loss - one) <= _limits(name)[0] * abs(one), (name, loss, one)
+    for rank, out in enumerate(_ranks(name, ranks22, ranks24)):
+        assert all(np.isfinite(g).all() for g in out["cases"][name][1]), (name, rank)
 
 
 @pytest.mark.parametrize("arch", ARCHS)
