@@ -26,6 +26,7 @@ import numpy as np
 import torch
 import torch.distributed as dist
 
+from repro_torch import trace
 from repro_torch.coded import registry
 from repro_torch.coded.config import CodedMatmulConfig
 from repro_torch.core import coded_backends
@@ -91,21 +92,22 @@ class CodedOp:
         an undecodable mask raises ``DecodingError`` here.  Passing None
         restores the original plan.
         """
-        if survivors is None:
-            return dataclasses.replace(self, plan_=self.base_plan,
-                                       survivors=None, chunk_progress=None)
-        mask = np.asarray(survivors, dtype=bool)
-        if mask.ndim == 2:
-            progress = chunk_mask_progress(mask, self.base_plan.num_workers)
-            return dataclasses.replace(
-                self,
-                plan_=self.base_plan.with_chunk_progress(
-                    progress, mask.shape[1]),
-                survivors=progress > 0, chunk_progress=progress)
-        mask = mask.reshape(-1)
-        return dataclasses.replace(
-            self, plan_=self.base_plan.with_survivors(mask), survivors=mask,
-            chunk_progress=None)
+        with trace.span(trace.REBIND):
+            if survivors is None:
+                return dataclasses.replace(self, plan_=self.base_plan,
+                                           survivors=None, chunk_progress=None)
+            mask = np.asarray(survivors, dtype=bool)
+            if mask.ndim == 2:
+                progress = chunk_mask_progress(mask, self.base_plan.num_workers)
+                with trace.span(trace.DECODE_MATRIX):
+                    rebound = self.base_plan.with_chunk_progress(progress, mask.shape[1])
+                return dataclasses.replace(self, plan_=rebound, survivors=progress > 0,
+                                           chunk_progress=progress)
+            mask = mask.reshape(-1)
+            with trace.span(trace.DECODE_MATRIX):
+                rebound = self.base_plan.with_survivors(mask)
+            return dataclasses.replace(self, plan_=rebound, survivors=mask,
+                                       chunk_progress=None)
 
     # ------------------------------- execution ------------------------------
 
@@ -113,11 +115,12 @@ class CodedOp:
         """The worker tile pack of ``a_sparse`` under this op's design,
         memoized in the pack cache (one pack serves every survivor rebind
         of this op)."""
-        if use_cache:
-            return pack_cache.get_pack(a_sparse, self.base_plan,
-                                       compute_dtype=self.config.compute_dtype)
-        return pack_worker_tiles(a_sparse, self.base_plan,
-                                 compute_dtype=self.config.compute_dtype)
+        with trace.span(trace.PACK_FOR):
+            if use_cache:
+                return pack_cache.get_pack(a_sparse, self.base_plan,
+                                           compute_dtype=self.config.compute_dtype)
+            return pack_worker_tiles(a_sparse, self.base_plan,
+                                     compute_dtype=self.config.compute_dtype)
 
     def _auto_backend(self, A: torch.Tensor, a_sparse, pack, s: int):
         """Resolve ``backend="auto"``: measure live-tile density, pick.
@@ -156,47 +159,50 @@ class CodedOp:
         fraction against ``config.auto_density_threshold`` and dispatches
         to block_sparse or dense_scan.
         """
-        if self.device is None:
-            raise ValueError(
-                "unbound CodedOp: call .bind() (or .bind('cpu')) first")
-        cfg = self.config
-        backend = cfg.backend
-        entry = coded_backends.get_backend(backend)
-        if not entry.needs_pack and (a_sparse is not None or pack is not None):
-            raise ValueError(
-                f"backend {backend!r} takes no a_sparse/pack operand")
-        A = torch.as_tensor(A, dtype=torch.float32, device=self.device)
-        B = torch.as_tensor(B, dtype=torch.float32, device=self.device)
-        N, s, r, _, br, _ = check_operands(A, B, self.plan_)
-        if entry.virtual:
-            backend, _, a_sparse = self._auto_backend(A, a_sparse, pack, s)
+        with trace.span(trace.APPLY):
+            if self.device is None:
+                raise ValueError(
+                    "unbound CodedOp: call .bind() (or .bind('cpu')) first")
+            cfg = self.config
+            backend = cfg.backend
             entry = coded_backends.get_backend(backend)
-            if not entry.needs_pack:
-                a_sparse = pack = None
-        dpack = None
-        if entry.needs_pack:
-            transient = pack is None and a_sparse is None
-            if pack is None and a_sparse is not None:
-                pack = self.pack_for(a_sparse)
-            pack = resolve_pack(
-                A, self.base_plan, pack=pack, a_sparse=a_sparse,
-                block_size=cfg.block_size, compute_dtype=cfg.compute_dtype,
-                num_workers=N, s=s, r=r, br=br)
-            # a rank holds only its own worker's tiles
-            workers = (None if self.group is None
-                       else (dist.get_rank(self.group),))
-            # a pack made from A for this call alone is not worth a cache
-            # entry (it would pin device memory nobody asks for again)
-            dpack = (DeviceTilePack.from_pack(pack, self.device, workers) if transient
-                     else pack_cache.device_pack(pack, self.device, workers))
-        return stage_coded_matmul(
-            A, B, self.plan_,
-            alive=self.survivors,
-            out_dtype=cfg.torch_dtype,
-            backend=backend,
-            pack=dpack,
-            group=self.group,
-            out_sharded=cfg.out_sharded)
+            if not entry.needs_pack and (a_sparse is not None or pack is not None):
+                raise ValueError(
+                    f"backend {backend!r} takes no a_sparse/pack operand")
+            A = torch.as_tensor(A, dtype=torch.float32, device=self.device)
+            B = torch.as_tensor(B, dtype=torch.float32, device=self.device)
+            N, s, r, _, br, _ = check_operands(A, B, self.plan_)
+            if entry.virtual:
+                backend, _, a_sparse = self._auto_backend(A, a_sparse, pack, s)
+                entry = coded_backends.get_backend(backend)
+                if not entry.needs_pack:
+                    a_sparse = pack = None
+            dpack = None
+            if entry.needs_pack:
+                transient = pack is None and a_sparse is None
+                if pack is None and a_sparse is not None:
+                    pack = self.pack_for(a_sparse)
+                pack = resolve_pack(
+                    A, self.base_plan, pack=pack, a_sparse=a_sparse,
+                    block_size=cfg.block_size, compute_dtype=cfg.compute_dtype,
+                    num_workers=N, s=s, r=r, br=br)
+                # a rank holds only its own worker's tiles
+                workers = (None if self.group is None
+                           else (dist.get_rank(self.group),))
+                # a pack made from A for this call alone is not worth a cache
+                # entry (it would pin device memory nobody asks for again)
+                with trace.span(trace.DEVICE_PACK):
+                    dpack = (DeviceTilePack.from_pack(pack, self.device, workers)
+                             if transient
+                             else pack_cache.device_pack(pack, self.device, workers))
+            return stage_coded_matmul(
+                A, B, self.plan_,
+                alive=self.survivors,
+                out_dtype=cfg.torch_dtype,
+                backend=backend,
+                pack=dpack,
+                group=self.group,
+                out_sharded=cfg.out_sharded)
 
     __call__ = apply
 

@@ -51,6 +51,7 @@ import scipy.sparse as sp
 import torch
 import torch.distributed as dist
 
+from repro_torch import trace
 from repro_torch.core import coded_backends
 from repro_torch.core.decoder import DecodingError, decode_matrix
 from repro_torch.core.encoder import (
@@ -425,34 +426,35 @@ def resolve_pack(
     ``compute_dtype``: a pack built against other operands would gather
     out of range.
     """
-    n = plan.n
-    if pack is None:
-        ell = a_sparse if a_sparse is not None else dense_to_block_ell(
-            _host_f32(A), block_size=block_size)
-        if ell.shape != (s, r):
-            raise ValueError(f"a_sparse shape {ell.shape} != A shape {(s, r)}")
-        pack = pack_worker_tiles(ell, plan, compute_dtype=compute_dtype)
-    if pack.compute_dtype != compute_dtype:
-        raise ValueError(
-            f"pack was quantized as {pack.compute_dtype!r} but the config "
-            f"asks for compute_dtype={compute_dtype!r}; rebuild the pack")
-    if pack.vals.shape[0] != num_workers:
-        raise ValueError(
-            f"pack built for {pack.vals.shape[0]} workers, plan has {num_workers}")
-    bs_p = pack.block_size
-    if s % bs_p or pack.vals.shape[1] * bs_p != br:
-        raise ValueError(
-            f"pack (block_size={bs_p}, {pack.vals.shape[1]} column "
-            f"blocks) does not tile operands with s={s}, br={br}")
-    if int(pack.src[..., 0].max(initial=0)) >= s // bs_p:
-        raise ValueError(
-            f"pack row-block indices exceed s//bs={s // bs_p}: the pack "
-            "was built for a different A")
-    if int(pack.src[..., 1].max(initial=0)) >= n:
-        raise ValueError(
-            f"pack column-group indices exceed n={n}: the pack was "
-            "built for a different plan")
-    return pack
+    with trace.span(trace.RESOLVE_PACK):
+        n = plan.n
+        if pack is None:
+            ell = a_sparse if a_sparse is not None else dense_to_block_ell(
+                _host_f32(A), block_size=block_size)
+            if ell.shape != (s, r):
+                raise ValueError(f"a_sparse shape {ell.shape} != A shape {(s, r)}")
+            pack = pack_worker_tiles(ell, plan, compute_dtype=compute_dtype)
+        if pack.compute_dtype != compute_dtype:
+            raise ValueError(
+                f"pack was quantized as {pack.compute_dtype!r} but the config "
+                f"asks for compute_dtype={compute_dtype!r}; rebuild the pack")
+        if pack.vals.shape[0] != num_workers:
+            raise ValueError(
+                f"pack built for {pack.vals.shape[0]} workers, plan has {num_workers}")
+        bs_p = pack.block_size
+        if s % bs_p or pack.vals.shape[1] * bs_p != br:
+            raise ValueError(
+                f"pack (block_size={bs_p}, {pack.vals.shape[1]} column "
+                f"blocks) does not tile operands with s={s}, br={br}")
+        if int(pack.src[..., 0].max(initial=0)) >= s // bs_p:
+            raise ValueError(
+                f"pack row-block indices exceed s//bs={s // bs_p}: the pack "
+                "was built for a different A")
+        if int(pack.src[..., 1].max(initial=0)) >= n:
+            raise ValueError(
+                f"pack column-group indices exceed n={n}: the pack was "
+                "built for a different plan")
+        return pack
 
 
 # ------------------------- local-compute backends ---------------------------
@@ -601,65 +603,70 @@ def stage_coded_matmul(
     the reference's ``out_specs=P(axis_name)`` layout -- and returns them
     (``gather_blocks`` reads C back).
     """
-    entry = coded_backends.get_backend(backend)
-    if entry.virtual:
-        raise ValueError(
-            f"backend {backend!r} is a dispatch pseudo-backend: resolve it "
-            "to a concrete backend (CodedOp does this) before staging")
-    N, s, r, t, br, bt = check_operands(A, B, plan)
-    m, n = plan.m, plan.n
-    dev = B.device
-    if entry.needs_pack and pack is None:
-        raise ValueError(
-            f"backend {backend!r} needs a resolved WorkerTilePack on the "
-            "device (see resolve_pack)")
-    if entry.local_product_factory is None:
-        raise ValueError(
-            f"backend {backend!r} is registered but has no "
-            "local_product_factory attached")
-    if group is not None and dist.get_world_size(group) != N:
-        raise ValueError(
-            f"process group of {dist.get_world_size(group)} ranks != plan "
-            f"workers {N}")
+    with trace.span(trace.STAGE):
+        entry = coded_backends.get_backend(backend)
+        if entry.virtual:
+            raise ValueError(
+                f"backend {backend!r} is a dispatch pseudo-backend: resolve it "
+                "to a concrete backend (CodedOp does this) before staging")
+        N, s, r, t, br, bt = check_operands(A, B, plan)
+        m, n = plan.m, plan.n
+        dev = B.device
+        if entry.needs_pack and pack is None:
+            raise ValueError(
+                f"backend {backend!r} needs a resolved WorkerTilePack on the "
+                "device (see resolve_pack)")
+        if entry.local_product_factory is None:
+            raise ValueError(
+                f"backend {backend!r} is registered but has no "
+                "local_product_factory attached")
+        if group is not None and dist.get_world_size(group) != N:
+            raise ValueError(
+                f"process group of {dist.get_world_size(group)} ranks != plan "
+                f"workers {N}")
 
-    alive_t = (torch.ones(N, dtype=torch.float32, device=dev) if alive is None
-               else torch.as_tensor(np.asarray(alive, dtype=np.float32)).to(dev))
-    D_t = torch.as_tensor(plan.decode).to(dev)          # (mn, N)
-    fuse = entry.fused_decode and entry.fused_local_product_factory is not None
-    if fuse:
-        local_product_decode = entry.fused_local_product_factory(plan, pack)
-    else:
-        local_product = entry.local_product_factory(plan, pack)
+        fuse = entry.fused_decode and entry.fused_local_product_factory is not None
+        with trace.span(trace.DECODE_WEIGHTS):
+            alive_t = (torch.ones(N, dtype=torch.float32, device=dev) if alive is None
+                       else torch.as_tensor(np.asarray(alive, dtype=np.float32)).to(dev))
+            D_t = torch.as_tensor(plan.decode).to(dev)          # (mn, N)
+            if fuse:
+                local_product_decode = entry.fused_local_product_factory(plan, pack)
+            else:
+                local_product = entry.local_product_factory(plan, pack)
 
-    def contribution(k):
-        dvec = D_t[:, k] * alive_t[k]      # survivor decode column, (mn,)
-        if fuse:
-            # one launch: the decode combine happens in the kernel epilogue
-            return local_product_decode(k, A, B, dvec)
-        Ct = local_product(k, A, B)
-        return dvec[:, None, None] * Ct[None]
+        def contribution(k):
+            with trace.span(trace.WORKER):
+                dvec = D_t[:, k] * alive_t[k]      # survivor decode column, (mn,)
+                if fuse:
+                    # one launch: the decode combine happens in the kernel epilogue
+                    return local_product_decode(k, A, B, dvec)
+                Ct = local_product(k, A, B)
+                return dvec[:, None, None] * Ct[None]
 
-    if group is None:
-        contribs = [contribution(k) for k in range(N)]
-        blocks = torch.stack(contribs).sum(dim=0)          # (mn, br, bt)
-        return _blocks_to_c(blocks, m, n).to(out_dtype)
+        if group is None:
+            contribs = [contribution(k) for k in range(N)]
+            with trace.span(trace.COMBINE):
+                blocks = torch.stack(contribs).sum(dim=0)          # (mn, br, bt)
+                return _blocks_to_c(blocks, m, n).to(out_dtype)
 
-    contrib = contribution(dist.get_rank(group))           # (mn, br, bt)
-    _mark("local")
-    if out_sharded:
-        mn = m * n
-        mn_pad = -(-mn // N) * N  # scatter splits the block dim N ways
-        contrib = torch.nn.functional.pad(contrib, (0, 0, 0, 0, 0, mn_pad - mn))
-        shard = torch.empty((mn_pad // N, br, bt), dtype=contrib.dtype, device=dev)
-        # the list form: torch 2.11 and 2.13 both have it and deprecate
-        # neither it nor its op (2.13 deprecates reduce_scatter_tensor;
-        # 2.11 has no reduce_scatter_single)
-        dist.reduce_scatter(shard, list(contrib.chunk(N)), group=group)
-        _mark("combined")
-        return shard
-    dist.all_reduce(contrib, group=group)
-    _mark("combined")
-    return _blocks_to_c(contrib, m, n).to(out_dtype)
+        contrib = contribution(dist.get_rank(group))           # (mn, br, bt)
+        _mark("local")
+        with trace.span(trace.COMBINE):
+            if out_sharded:
+                mn = m * n
+                mn_pad = -(-mn // N) * N  # scatter splits the block dim N ways
+                contrib = torch.nn.functional.pad(contrib, (0, 0, 0, 0, 0, mn_pad - mn))
+                shard = torch.empty((mn_pad // N, br, bt), dtype=contrib.dtype, device=dev)
+                # the list form: torch 2.11 and 2.13 both have it and deprecate
+                # neither it nor its op (2.13 deprecates reduce_scatter_tensor;
+                # 2.11 has no reduce_scatter_single)
+                dist.reduce_scatter(shard, list(contrib.chunk(N)), group=group)
+                _mark("combined")
+                return shard
+            dist.all_reduce(contrib, group=group)
+            _mark("combined")
+            return _blocks_to_c(contrib, m, n).to(out_dtype)
 
 
 def gather_blocks(shard: torch.Tensor, plan: CodedMatmulPlan, group) -> torch.Tensor:

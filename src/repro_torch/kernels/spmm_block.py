@@ -35,6 +35,7 @@ import ctypes
 
 import torch
 
+from repro_torch import trace
 from repro_torch.kernels.build import (check_cuda_operands, load_library,
                                       raise_on_error)
 
@@ -73,10 +74,11 @@ def slot_order(src: torch.Tensor, bs_rows: int) -> torch.Tensor:
     weights leave it valid.  Runs where ``src`` lies, with no host
     synchronisation.
     """
-    key = src[..., 0].long()
-    if src.shape[-1] == 2:
-        key = key + src[..., 1].long() * bs_rows
-    return torch.argsort(key, dim=-1, stable=True).to(torch.int32)
+    with trace.span(trace.SLOT_ORDER):
+        key = src[..., 0].long()
+        if src.shape[-1] == 2:
+            key = key + src[..., 1].long() * bs_rows
+        return torch.argsort(key, dim=-1, stable=True).to(torch.int32)
 
 
 def copy_path(B: torch.Tensor) -> str:
@@ -124,8 +126,9 @@ def _check_indices(src, bs_rows: int, n_groups: int) -> None:
     """src indices in range (an index out of range would read outside B): on
     the device, one small reduction and one synchronisation."""
     plain = src.shape[-1] == 1
-    lo, hi = src.amin(dim=(0, 1)), src.amax(dim=(0, 1))
-    got = torch.cat([lo, hi]).tolist()
+    with trace.span(trace.CHECK_INDICES):
+        lo, hi = src.amin(dim=(0, 1)), src.amax(dim=(0, 1))
+        got = torch.cat([lo, hi]).tolist()
     k = src.shape[-1]
     lo_, hi_ = got[:k], got[k:]
     if plain and (lo_[0] < 0 or hi_[0] >= bs_rows):
